@@ -10,10 +10,16 @@ Phases, each of which must pass or the script exits non-zero:
 2. Kernels against their plain PyTorch versions, on the card, at every
    shape a path below gives them (capacity and live rows included), and at
    B=1024 for l2 and cosine over 1M rows (capacity 1,048,576) x 128, plus
-   K1's bf16-operand instantiation: K1 at k=16, K2 at k=128, and K1's
-   large-k route at k=2048.  Median device ms of each (CUDA events, 5 runs
-   after 2 warm-ups); the summary line reports the 1M-row cosine times at
-   B=4096 (K1, K2) and B=16 (large k).
+   K1's bf16-operand instantiation: K1 at k=16, K2 (on the arena's bf16
+   mirror) at k=128, and K1's large-k route at k=2048.  Median device ms of
+   each (CUDA events, 5 runs after 2 warm-ups), beside its bound (the
+   larger of the operations over the card's peak for their type and the
+   bytes over its memory rate, counted from this case's live rows), the
+   achieved TFLOP/s and library_ms: the same product alone as one PyTorch
+   call per arena chunk (bf16 matmul with bf16 output for K2, f32 matmul
+   with TF32 off for K1), which the port never calls.  The summary line
+   reports the 1M-row cosine numbers at B=4096 (K1, K2) and B=16 (large
+   k).
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -108,7 +114,11 @@ KERNEL_CASES = (
     ("fused_topk_search_large_k", "l2", 1, BIG_K, True, WIRE_CAP, WIRE_ROWS),   # wire
     ("fused_topk_search_large_k", "cosine", BIG_B, BIG_K, True, CAP, ROWS),     # restore
 )
-# The case whose times the summary line reports, per kernel.
+# Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 FMA
+# outside them, HBM3.
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+LIBRARY_CHUNK_BYTES = 1 << 30  # one [B, chunk] product of library_ms at most
+# The case whose numbers the summary line reports, per kernel.
 SUMMARY = {"fused_topk_search": ("cosine", MAIN_B, CAP),
            "fused_topk_search_v2": ("cosine", MAIN_B, CAP),
            "fused_topk_search_large_k": ("cosine", BIG_B, CAP)}
@@ -177,6 +187,39 @@ def compare(torch, name, got, want, truth, gap, rtol, atol):
     return float((dk[fin] - dr[fin]).abs().max()), int(swaps.sum())
 
 
+def bound(name, b, rows, cap, dims, k):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for a kernel's work at this case.  Operations: 2*B*rows*D products and
+    sums over the live rows, on bf16 tensor cores for K2 and f32 FMA for K1
+    (its bf16-operand instantiation included).  Bytes: each input read once
+    (the live rows of the arena, bf16 for K2 and f32 for K1, and their
+    x_sq; the whole valid mask; the f32 queries) and the [B, k] results
+    written once."""
+    k2 = name == "fused_topk_search_v2"
+    ops_ms = 2 * b * rows * dims / (PEAK_BF16 if k2 else PEAK_F32) * 1e3
+    nbytes = rows * (dims * (2 if k2 else 4) + 4) + cap + b * dims * 4 + b * k * 8
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def library_product(torch, name, q, x, xb):
+    """The product alone, as a library would compute it before any top-k:
+    bf16 ``q @ xb.T`` with bf16 output for K2, f32 ``q @ x.T`` (TF32 off)
+    for K1, one ``torch.matmul`` per arena chunk of at most
+    LIBRARY_CHUNK_BYTES of output."""
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+
+    k2 = name == "fused_topk_search_v2"
+    lhs = F.arena_bf16(q) if k2 else q.float()
+    rhs = xb if k2 else x
+    chunk = max(F.GROUP, LIBRARY_CHUNK_BYTES // (lhs.element_size() * lhs.shape[0]))
+
+    def run():
+        for s in range(0, rhs.shape[0], chunk):
+            torch.matmul(lhs, rhs[s:s + chunk].T)
+    return run
+
+
 def phase_kernels(torch, x_host, report):
     from embeddinghub_tpu_torch.ops import distance as D
     from embeddinghub_tpu_torch.ops import fused_topk as F
@@ -194,13 +237,16 @@ def phase_kernels(torch, x_host, report):
     raw[:ROWS] = torch.from_numpy(x_host).cuda()
     for metric in ("l2", "cosine"):
         x_full = D.preprocess_vectors(raw, metric)
+        xb_full = F.arena_bf16(x_full)
         x_sq_full = D.sqnorms(x_full)
         for name, m, b, k, exact, cap, rows in KERNEL_CASES:
             if m != metric:
                 continue
             kernel, plain = kernels[name]
             q = q_all[:b]
-            x, x_sq = x_full[:cap], x_sq_full[:cap]  # the first cap rows: contiguous
+            # the first cap rows: contiguous
+            x, xb, x_sq = x_full[:cap], xb_full[:cap], x_sq_full[:cap]
+            arena = xb if name == "fused_topk_search_v2" else x
             valid = torch.arange(cap, device="cuda") < rows
             args = dict(k=k, metric=metric)
             if exact is not None:
@@ -209,24 +255,30 @@ def phase_kernels(torch, x_host, report):
             # (tie gap, rtol, atol): f32 operands on both sides differ only
             # in summation order; bf16 operands leave ties 1e-3 wide
             gap, rtol, atol = (1e-3, 1e-3, 1e-3) if bf16 else (1e-4, 1e-5, 1e-4)
-            got = kernel(q, x, valid, x_sq, **args)
-            want = plain(q, x, valid, x_sq, **args)
+            got = kernel(q, arena, valid, x_sq, **args)
+            want = plain(q, arena, valid, x_sq, **args)
             torch.cuda.synchronize()
             err, swaps = compare(
                 torch, f"{name}/{metric}/B={b}/cap={cap}", got, want,
                 lambda ids: scores_of(torch, q, x, x_sq, ids, metric, bf16),
                 gap, rtol, atol)
-            ms = device_ms(torch, lambda: kernel(q, x, valid, x_sq, **args))
-            plain_ms = device_ms(torch, lambda: plain(q, x, valid, x_sq, **args))
+            ms = device_ms(torch, lambda: kernel(q, arena, valid, x_sq, **args))
+            plain_ms = device_ms(torch, lambda: plain(q, arena, valid, x_sq, **args))
+            library_ms = device_ms(torch, library_product(torch, name, q, x, xb))
+            bound_ms, bound_by = bound(name, b, rows, cap, DIMS, k)
+            tflops = 2 * b * rows * DIMS / (ms * 1e-3) / 1e12
             print(f"[kernels] {name} {metric} B={b} cap={cap} rows={rows} k={k}"
                   f"{'' if exact is None else f' exact={exact}'}: "
                   f"max_abs_err={err:.3g} tie_swaps={swaps} "
-                  f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+                  f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                  f"bound_ms={bound_ms:.3f} ({bound_by}) tflops={tflops:.1f} "
+                  f"library_ms={library_ms:.3f}", flush=True)
             entry = report.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             if SUMMARY[name] == (metric, b, cap) and exact is not False:
-                entry["ms"], entry["plain_ms"] = ms, plain_ms
-        del x_full, x_sq_full, x, x_sq, valid
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms)
+        del x_full, xb_full, x_sq_full, x, xb, x_sq, valid
     del raw, q_all
     torch.cuda.empty_cache()
 
@@ -662,14 +714,16 @@ def main() -> int:
     replaces = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
                 "fused_topk_search_v2": "embeddinghub_tpu/ops/pallas_topk.py:270",
                 "fused_topk_search_large_k": "embeddinghub_tpu/ops/pallas_topk.py:124"}
+    sources = {"fused_topk_search": "embeddinghub_tpu_torch/csrc/fused_topk.cu",
+               "fused_topk_search_v2": "embeddinghub_tpu_torch/csrc/k2_scan.cu",
+               "fused_topk_search_large_k": "embeddinghub_tpu_torch/csrc/fused_topk.cu"}
     # launches: the main path's count; paths: each path's own
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "embeddinghub_tpu_torch/csrc/fused_topk.cu",
+        {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": paths["main"][name],
          "paths": {path: counts.get(name, 0) for path, counts in paths.items()},
-         "max_abs_err": report[name]["max_abs_err"],
-         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
+         **{key: report[name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

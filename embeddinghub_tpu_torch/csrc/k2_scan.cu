@@ -1,0 +1,947 @@
+// K2 for Hopper (sm_90a): approximate k-NN candidates over a bf16 mirror
+// of the arena, with TMA, mbarriers and wgmma.
+//
+// Replaces the Pallas kernel fused_topk_search_v2 (_kernel_v2) of
+// embeddinghub_tpu/ops/pallas_topk.py:270 -> ehtorch_k2.  What it computes
+// is the Pallas kernel's: operands rounded to bf16 (the mirror holds the
+// rounded rows, k2_queries_kernel rounds the queries), products summed in
+// f32;
+// score x_sq - 2 q.x for l2, -q.x for ip/cosine; dead rows and rows past
+// cap score +inf; one (min, first argmin) winner per group of 128
+// consecutive rows; the k best winners per query, lower row first on ties;
+// the epilogue of pallas_topk.py:336-342 (emit, topk_common.cuh).
+//
+// Bound on an H100 at the main path's shape (1M x 128 cosine, B=4096,
+// k=128): 2*B*cap*D = 1.10e12 bf16 flops take 1.11 ms at 989 TFLOP/s; the
+// bytes (bf16 mirror 268 MB, x_sq, valid, queries) take 0.08 ms at 3.35
+// TB/s, so the product bounds it.  At B=1 the bytes do: 0.08 ms.
+//
+// Design, against what held back the mma.sync scan it replaces:
+//  1. Tensor cores.  wgmma.mma_async m64n128k16 with the arena tile as B
+//     from shared memory, K-major, 128-byte swizzled.  Two consumer
+//     warpgroups own 64 queries each (128 per block).  At widths up to
+//     192 columns the query fragments sit in registers for the whole scan
+//     (A from registers), and each warpgroup keeps two accumulators of 64
+//     f32 a thread, so it issues the next tile's products before it
+//     reduces this one's: the tensor cores never wait for an epilogue
+//     (setmaxnreg gives the consumers 232 registers, the producer 40).
+//     Wider rows take both operands from shared memory, with one
+//     accumulator per warpgroup.
+//     The loop has no __syncthreads: mbarriers and named barriers only.
+//  2. The arena stream.  The kernel reads the bf16 mirror that the index
+//     keeps (index/flat.py), nothing is rounded in the loop.  One producer
+//     thread issues TMA loads (cp.async.bulk.tensor) of 128-row x 64-column
+//     boxes into a ring of stages, each with a full and an empty mbarrier,
+//     and each 128-row tile's bias (x_sq or 0 where live, +inf where dead
+//     or past cap, made by k2_bias_kernel) into a ring of its own, so a
+//     score is one FMA.  TMA zero-fills past cap and past B.  The block's
+//     query tile is loaded once, in bf16, for the whole scan (widths past
+//     576 columns stream it with each box instead: it does not fit beside
+//     the ring).
+//  3. Selection out of the product loop.  Per tile, each consumer thread
+//     takes the in-thread min with first argmin over its 32 columns, then
+//     two quad shuffles give each query's group winner, one 64-bit key
+//     pack(score, row).  Each warpgroup stages its keys in shared memory
+//     and writes them to a [B, G] buffer (G = ceil(cap/128)) with one TMA
+//     store per 16 tiles, whole rows of 128 bytes instead of scattered
+//     8-byte writes.  k2_select_kernel then takes each query's k best keys: radix select of
+//     the k-th key, 8 bits a pass from the top, and a bitonic sort of the
+//     chosen k.  Past SELECT_CHUNK groups it selects per chunk and again
+//     over the chunks' winners.
+//  4. The grid.  Blocks of 128 queries along x, slices of the arena along
+//     y: the query tile varies fastest, so the blocks that share a slice
+//     run together and read it from L2, and the slice count fills the SMs
+//     at any B.
+//
+// A kernel launches on the caller's stream and allocates nothing.  The C
+// entry returns 0, a CUDA error code, or NO_LIBCUDA / ENCODE_FAILED + the
+// CUresult when a tensor map cannot be made.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include "topk_common.cuh"
+
+namespace {
+
+constexpr int GROUP = 128;                   // rows per tile: K2's group
+constexpr int BOX = 64;                      // bf16 columns per TMA box: the 128-byte swizzle span
+constexpr int BOX_BYTES = GROUP * BOX * 2;   // one box of 128 rows (or queries): 16 KB
+constexpr int WG_Q = 64;                     // queries per consumer warpgroup (wgmma M)
+constexpr int BLOCK_Q = 2 * WG_Q;            // queries per block
+constexpr int THREADS = 384;                 // warpgroups 0, 1 consume; 2 produces
+constexpr int PRODUCER = 256;                // the thread that issues every TMA load
+constexpr int CONSUMER_WARPS = 8;            // arrivals that release a stage
+constexpr int PRODUCER_REGS = 40;            // setmaxnreg: the producer gives up
+constexpr int CONSUMER_REGS = 232;           // registers the consumers take
+constexpr int TILE_STAGES = 4;               // ring of per-tile bias
+constexpr int TILE_BYTES = GROUP * 4;        // f32 bias of a tile's rows
+constexpr int STORE_TILES = 16;              // tiles of keys per TMA store
+constexpr int STORE_BYTES = 2 * 2 * WG_Q * STORE_TILES * 8;  // 2 warpgroups x 2 buffers
+constexpr int MAX_STAGES = 8;               // ring depth at most (more gained nothing)
+constexpr int MIN_RESIDENT_STAGES = 4;       // else the query tile streams
+constexpr int SMEM_LIMIT = 232448;           // 227 KB, a block's most
+constexpr int SELECT_CHUNK = 8192;           // keys one select block holds
+constexpr int NO_LIBCUDA = 9999;
+constexpr int ENCODE_FAILED = 10000;
+
+// Shared memory of the scan, from its 1024-byte aligned base: the query
+// boxes (when resident), the ring, the staged keys, the tile ring, the
+// mbarriers.
+struct Layout {
+  int nb;           // boxes across the padded width Dp
+  int stages;       // ring depth
+  int resident;     // query tile loaded once (1) or with each box (0)
+  int stage_bytes;  // one arena box, plus its query box when streamed
+  __host__ __device__ int ring_off() const { return resident ? nb * BOX_BYTES : 0; }
+  __host__ __device__ int store_off() const { return ring_off() + stages * stage_bytes; }
+  __host__ __device__ int tile_off() const { return store_off() + STORE_BYTES; }
+  __host__ __device__ int bar_off() const { return tile_off() + TILE_STAGES * TILE_BYTES; }
+  __host__ __device__ int bytes() const {
+    return bar_off() + (2 * stages + 2 * TILE_STAGES + 1) * 8 + 1024;  // + alignment slack
+  }
+};
+
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of the given parity has completed.  A phase that
+// has not completed after 10 s of wall time (a copy that faulted, a bug)
+// traps instead of holding the card.  The trap is a sticky error: it ends
+// the process's CUDA context, so a server whose kernel stalls that long
+// (a debugger, a card shared past all measure) must be restarted.  The
+// timeout also shapes the code: without it ptxas moves each wait's retry
+// loop out of line and then serializes every wgmma (ptxas -v: C7514), and
+// the scan is about a fifth slower (tools/probe_k2_parts.py, PERF.md).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  unsigned polls = 0;
+  uint64_t start = 0;
+  do {
+    if ((++polls & 1023u) == 0) {
+      if (start == 0)
+        start = now_ns();
+      else if (now_ns() - start > 10000000000ull)
+        __trap();
+    }
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map,
+                                       int c0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3}], [%2];" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// A wgmma operand of 8-row groups 1024 bytes apart, each row 128 bytes of
+// K, swizzled in 128-byte spans: the layout a 64-column TMA box with
+// CU_TENSOR_MAP_SWIZZLE_128B leaves.  Step k16 of the box starts 32 bytes
+// further along the row.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)   // start address
+         | ((uint64_t)1 << 16)               // leading offset: unused when swizzled
+         | ((uint64_t)(1024 >> 4) << 32)     // stride offset: 8 rows
+         | ((uint64_t)1 << 62);              // 128-byte swizzle
+}
+
+// Named barriers (0 is __syncthreads): warpgroup w syncs its own 128
+// threads on FLUSH + w around a store of its keys.
+constexpr int FLUSH = 1;
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d[64] (+)= A[64 x 16] . B[16 x 128]^T, f32 sums of bf16 products; the
+// first step of a tile (scale_d = 0) overwrites.
+__device__ __forceinline__ void wgmma_128(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with A from registers: a[0..3] the m64k16 fragment of this
+// thread (rows g and g + 8 of its warp's 16, columns 2t, 2t + 1 and
+// 2t + 8, 2t + 9), as mma.sync m16n8k16 lays it out.
+__device__ __forceinline__ void wgmma_128_rs(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Keeps the compiler from moving reads of the accumulators above the wait.
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ------------------------------------------------------------- the scan
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// (v, c) := the lexicographically smaller of (v, c) and (ov, oc).
+__device__ __forceinline__ void take_min(float& v, int& c, float ov, int oc) {
+  if (ov < v || (ov == v && oc < c)) {
+    v = ov;
+    c = oc;
+  }
+}
+
+// What a consumer thread needs across tiles for its epilogues.
+struct Epilogue {
+  const uint8_t* tiles;  // the tile ring of biases
+  uint64_t* tempty;      // its empty barriers
+  uint64_t* tfull;       // its full barriers
+  uint64_t* staged;      // this warpgroup's two [64][STORE_TILES] key buffers
+  const CUtensorMap* kmap;
+  int wg, q_wg;          // the warpgroup, and its first query
+  int row, tq, warp, lane;
+  bool active;           // the warpgroup has a query below B
+  float scale;           // score = bias + scale * q.x
+  int ts, tph, buf;      // tile ring stage and phase; key buffer
+};
+
+// One tile's epilogue, for the tile in acc: each query's group winner into
+// the staged keys, and every STORE_TILES tiles (or at t_end) a TMA store of
+// them.  write: t is a real tile (not the pad of an odd count).
+//
+// bias: x_sq (l2) or 0 for a live row, +inf for a dead one or one past
+// cap, so a score is one FMA and a dead row never wins.  Columns in
+// ascending order within each of four chains (two rows, even and odd j)
+// that the compiler can interleave; a chain keeps its minimum with fminf
+// and its column (a constant of the unrolled loop, 2t added at the end)
+// where the score is strictly below the minimum so far; the merges break
+// ties by the lower column: the first minimum wins.  A group with no live
+// row keeps (+inf, its first row), a key that sorts last and leaves its
+// slot empty.
+__device__ __forceinline__ void tile_epilogue(Epilogue& e, const float* acc, int t,
+                                              int t_end, bool write) {
+  mbar_wait(e.tfull + e.ts, e.tph);
+  if (e.active && write) {
+    const float* bias = reinterpret_cast<const float*>(e.tiles + e.ts * TILE_BYTES);
+    float v[4] = {INF, INF, INF, INF};
+    int c[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < GROUP / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * e.tq);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float bh = h ? bb.y : bb.x;
+        const float sa = fmaf(e.scale, acc[4 * j + h], bh);
+        const float sb = fmaf(e.scale, acc[4 * j + 2 + h], bh);
+        const int p = j & 1;
+        c[p] = sa < v[p] ? 8 * j + h : c[p];
+        v[p] = fminf(v[p], sa);
+        c[2 + p] = sb < v[2 + p] ? 8 * j + h : c[2 + p];
+        v[2 + p] = fminf(v[2 + p], sb);
+      }
+    }
+    take_min(v[0], c[0], v[1], c[1]);
+    take_min(v[2], c[2], v[3], c[3]);
+    c[0] += 2 * e.tq;
+    c[2] += 2 * e.tq;
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ova = __shfl_xor_sync(FULL, v[0], off);
+      const int oca = __shfl_xor_sync(FULL, c[0], off);
+      const float ovb = __shfl_xor_sync(FULL, v[2], off);
+      const int ocb = __shfl_xor_sync(FULL, c[2], off);
+      take_min(v[0], c[0], ova, oca);
+      take_min(v[2], c[2], ovb, ocb);
+    }
+    uint64_t* out = e.staged + e.buf * WG_Q * STORE_TILES;
+    const int slot = t % STORE_TILES;
+    if (e.tq == 0) {
+      out[e.row * STORE_TILES + slot] = pack(v[0], t * GROUP + c[0]);
+      out[(e.row + 8) * STORE_TILES + slot] = pack(v[2], t * GROUP + c[2]);
+    }
+    // Every STORE_TILES tiles (slices start on a multiple of it), one TMA
+    // store writes the warpgroup's [64 x STORE_TILES] keys into the [B, G]
+    // buffer; it clips rows past B and tiles past G.
+    if (slot == STORE_TILES - 1 || t + 1 == t_end) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_sync(FLUSH + e.wg, 128);
+      if (e.warp == 0 && e.lane == 0) {
+        tma_store_2d(e.kmap, out, t - slot, e.q_wg);
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        // the store before this one has read the other buffer
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      }
+      named_sync(FLUSH + e.wg, 128);
+      e.buf ^= 1;
+    }
+  }
+  __syncwarp();
+  if (e.lane == 0) mbar_arrive(e.tempty + e.ts);
+  if (++e.ts == TILE_STAGES) {
+    e.ts = 0;
+    e.tph ^= 1;
+  }
+}
+
+// The products of one tile into acc, A from registers: RS boxes, each
+// waited for in the ring and issued as four k16 steps, one commit group.
+// Returns the tile's first stage.
+template <int RS>
+__device__ __forceinline__ int issue_rs(float* acc, const uint32_t (&afrag)[RS][BOX / 16][4],
+                                        uint64_t* full, uint32_t ring, int stage_bytes,
+                                        int stages, int& s, int& ph) {
+  const int first = s;
+#pragma unroll
+  for (int j = 0; j < RS; ++j) {
+    mbar_wait(full + s, ph);
+    const uint32_t b_addr = ring + s * stage_bytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BOX / 16; ++kk)
+      wgmma_128_rs(acc, afrag[j][kk], sw128_desc(b_addr + 32 * kk), (j | kk) != 0);
+    if (++s == stages) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  wgmma_commit();
+  return first;
+}
+
+// Warp w of a consumer warpgroup holds queries 16w + g and 16w + g + 8 of
+// the warpgroup's 64 (g = lane / 4), at columns 8j + 2t + {0, 1} of the
+// tile (t = lane % 4): d[4j + h] and d[4j + 2 + h].
+//
+// RS > 0: the query tile is resident and RS boxes wide (Dp = 64 RS), and
+// the ring holds two tiles: each consumer thread loads its A fragments
+// once, and the products take A from registers, so they read only the
+// arena tile from shared memory (64 bytes a cycle at the tensor cores'
+// rate, against 96 with both operands there).  Each warpgroup keeps two
+// accumulators and issues tile t + 1's products before it reduces tile t,
+// so the tensor cores always have the next tile while the epilogue runs.
+// It issues one tile past its slice's end (the last tile again, when the
+// count is odd, and once more at the end) to keep every product issue
+// unconditional.  RS = 0: both operands from shared memory, any width, one
+// accumulator, the two warpgroups side by side.
+template <int RS>
+__global__ void __launch_bounds__(THREADS, 1)
+k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap bmap,
+               const __grid_constant__ CUtensorMap kmap, int B, int n_tiles,
+               int tiles_per_split, int l2, Layout L) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off());
+  uint64_t* empty = full + L.stages;
+  uint64_t* tfull = empty + L.stages;
+  uint64_t* tempty = tfull + TILE_STAGES;
+  uint64_t* qbar = tempty + TILE_STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int q0 = blockIdx.x * BLOCK_Q;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  // Tiles with an epilogue, and tiles whose products are issued (RS: an
+  // even count, then one more).
+  const int n_epi = RS > 0 ? (t_end - t_begin + 1) / 2 * 2 : t_end - t_begin;
+  const int n_mma = RS > 0 ? n_epi + 1 : n_epi;
+
+  if (tid == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMER_WARPS);
+    }
+    for (int s = 0; s < TILE_STAGES; ++s) {
+      mbar_init(tfull + s, 1);
+      mbar_init(tempty + s, CONSUMER_WARPS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid != PRODUCER) return;
+    if (L.resident) {
+      mbar_expect_tx(qbar, L.nb * BOX_BYTES);
+      for (int j = 0; j < L.nb; ++j)
+        tma_2d(smem + j * BOX_BYTES, &qmap, j * BOX, q0, qbar);
+    }
+    int s = 0, ph = 0, ts = 0, tph = 0;
+    for (int i = 0; i < n_mma; ++i) {
+      const int t = min(t_begin + i, t_end - 1);
+      if (i < n_epi) {
+        mbar_wait(tempty + ts, tph ^ 1);
+        mbar_expect_tx(tfull + ts, TILE_BYTES);
+        tma_1d(smem + L.tile_off() + ts * TILE_BYTES, &bmap, t * GROUP, tfull + ts);
+        if (++ts == TILE_STAGES) {
+          ts = 0;
+          tph ^= 1;
+        }
+      }
+      for (int j = 0; j < L.nb; ++j) {
+        mbar_wait(empty + s, ph ^ 1);
+        uint8_t* st = smem + L.ring_off() + s * L.stage_bytes;
+        mbar_expect_tx(full + s, L.stage_bytes);
+        tma_2d(st, &xmap, j * BOX, t * GROUP, full + s);
+        if (!L.resident) tma_2d(st + BOX_BYTES, &qmap, j * BOX, q0, full + s);
+        if (++s == L.stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  Epilogue e;
+  e.tiles = smem + L.tile_off();
+  e.tempty = tempty;
+  e.tfull = tfull;
+  // Two [64 queries][STORE_TILES] buffers of this warpgroup's winner keys.
+  e.staged = reinterpret_cast<uint64_t*>(smem + L.store_off()) + wg * 2 * WG_Q * STORE_TILES;
+  e.kmap = &kmap;
+  e.wg = wg;
+  e.q_wg = q0 + wg * WG_Q;
+  e.warp = warp;
+  e.lane = lane;
+  e.tq = lane & 3;
+  e.row = warp * 16 + (lane >> 2);  // this thread's queries: row, row + 8
+  e.active = e.q_wg < B;
+  e.scale = l2 ? -2.f : -1.f;
+  e.ts = e.tph = e.buf = 0;
+  const uint32_t ring = smem_u32(smem + L.ring_off());
+  if (L.resident) mbar_wait(qbar, 0);
+  int s = 0, ph = 0;
+
+  if constexpr (RS > 0) {
+    // This thread's A fragments for every k16 step of every box: rows row
+    // and row + 8 of the warpgroup's, in the 128-byte swizzle (16-byte
+    // chunk c of row r sits at chunk c ^ (r % 8); r % 8 = g).
+    uint32_t afrag[RS][BOX / 16][4];
+    const uint8_t* rows = smem + (wg * WG_Q + e.row) * 128;
+#pragma unroll
+    for (int j = 0; j < RS; ++j)
+#pragma unroll
+      for (int kk = 0; kk < BOX / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int col = 16 * kk + 2 * e.tq + ((f & 2) ? 8 : 0);
+          const int off = (((col >> 3) ^ (lane >> 2)) << 4) + ((col & 7) << 1);
+          afrag[j][kk][f] = *reinterpret_cast<const uint32_t*>(
+              rows + j * BOX_BYTES + ((f & 1) ? 8 * 128 : 0) + off);
+        }
+    float acc0[64], acc1[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+    auto release = [&](int first) {
+      if (lane == 0)
+        for (int j = 0, r = first; j < RS; ++j, r = r + 1 == L.stages ? 0 : r + 1)
+          mbar_arrive(empty + r);
+    };
+    int s0 = issue_rs<RS>(acc0, afrag, full, ring, L.stage_bytes, L.stages, s, ph);
+    for (int i = 0; i < n_epi; i += 2) {
+      const int s1 = issue_rs<RS>(acc1, afrag, full, ring, L.stage_bytes, L.stages, s, ph);
+      wgmma_wait<1>();
+      fence_acc(acc0);
+      release(s0);
+      tile_epilogue(e, acc0, t_begin + i, t_end, true);
+      s0 = issue_rs<RS>(acc0, afrag, full, ring, L.stage_bytes, L.stages, s, ph);
+      wgmma_wait<1>();
+      fence_acc(acc1);
+      release(s1);
+      tile_epilogue(e, acc1, t_begin + i + 1, t_end, t_begin + i + 1 < t_end);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc0);
+    release(s0);
+  } else {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const uint32_t wg_rows = wg * WG_Q * 128;  // the warpgroup's 64 rows of a query box
+    for (int t = t_begin; t < t_end; ++t) {
+      // The products are issued on every path alike (a warpgroup past B
+      // multiplies zeros): a wgmma under a branch is serialized.  The
+      // padding columns of the mirror and the queries are zero.
+      int prev = 0;
+      for (int j = 0; j < L.nb; ++j) {
+        mbar_wait(full + s, ph);
+        const uint32_t b_addr = ring + s * L.stage_bytes;
+        const uint32_t a_addr =
+            (L.resident ? smem_u32(smem) + j * BOX_BYTES : b_addr + BOX_BYTES) + wg_rows;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BOX / 16; ++kk)
+          wgmma_128(acc, sw128_desc(a_addr + 32 * kk), sw128_desc(b_addr + 32 * kk),
+                    (j | kk) != 0);
+        wgmma_commit();
+        // The previous box's products are done: free its stage (a tile may
+        // have more boxes than the ring has stages).
+        wgmma_wait<1>();
+        if (j > 0 && lane == 0) mbar_arrive(empty + prev);
+        prev = s;
+        if (++s == L.stages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + prev);
+      tile_epilogue(e, acc, t, t_end, true);
+    }
+  }
+  if (e.active && warp == 0 && lane == 0)
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// ---------------------------------------------------------- the inputs
+
+// The queries as K2 scores them, rounded to bf16 (to nearest even) into
+// qb [B, Dp] with zero padding: a cosine query divided by its norm,
+// floored at 1e-30 as ops/distance.normalize does.  One block per query.
+__global__ void __launch_bounds__(MERGE_THREADS)
+k2_queries_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ qb, int D,
+                  int Dp, int cosine) {
+  __shared__ float red[MERGE_THREADS / 32];
+  const int b = blockIdx.x;
+  const float* row = q + (size_t)b * D;
+  const float norm = fmaxf(sqrtf(block_sqnorm(row, D, cosine, red)), 1e-30f);
+  for (int d = threadIdx.x; d < Dp; d += MERGE_THREADS) {
+    const float v = d < D ? (cosine ? row[d] / norm : row[d]) : 0.f;
+    qb[(size_t)b * Dp + d] = __float2bfloat16_rn(v);
+  }
+}
+
+// bias [n]: what a row adds to -2 q.x (l2) or -q.x: x_sq (l2) or 0 where
+// live, +inf where dead and past cap, so a score is one FMA and a dead row
+// never wins.
+__global__ void k2_bias_kernel(const uint8_t* __restrict__ valid,
+                               const float* __restrict__ x_sq, float* __restrict__ bias,
+                               int cap, int n, int l2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) bias[i] = i < cap && valid[i] ? (l2 ? x_sq[i] : 0.f) : INF;
+}
+
+// ------------------------------------------------------------ selection
+
+// One block per (chunk, query): the k smallest of the chunk's keys (a
+// query's n keys start every stride keys).  Radix
+// select finds the k-th key 8 bits a pass from the top, counting in a
+// 256-bin histogram the keys that match the digits chosen so far, and
+// stops as soon as the chosen bin holds exactly the keys still needed.
+// The keys below the bound, then copies of the bound up to k, are sorted
+// (bitonic, in shared memory) and written out: to out [B][chunks][k], or,
+// for the last pass (EMIT), through the epilogue into od/oi [B][k].  A
+// chunk with fewer than k keys pads with all ones, which sorts last and
+// emits as an empty slot.
+template <bool EMIT>
+__global__ void __launch_bounds__(MERGE_THREADS)
+k2_select_kernel(const unsigned long long* __restrict__ in, int n, int stride,
+                 int chunk, int k, int kp, unsigned long long* __restrict__ out,
+                 const float* __restrict__ q, float* __restrict__ od,
+                 int* __restrict__ oi, int D, int l2) {
+  extern __shared__ unsigned long long sk[];  // [chunk] keys, then [kp] chosen
+  unsigned long long* sel = sk + chunk;
+  __shared__ unsigned hist[256];
+  __shared__ unsigned long long s_prefix;
+  __shared__ int s_need, s_done, s_count;
+  __shared__ float red[MERGE_THREADS / 32];
+  const int b = blockIdx.y;
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int lo = c * chunk;
+  const int m = min(chunk, n - lo);
+  const unsigned long long* src = in + (size_t)b * stride + lo;
+  for (int e = tid; e < m; e += MERGE_THREADS) sk[e] = src[e];
+  const int take = min(k, m);
+
+  unsigned long long prefix = 0, mask = 0;
+  int need = take;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int e = tid; e < 256; e += MERGE_THREADS) hist[e] = 0;
+    __syncthreads();
+    for (int base = 0; base < m; base += MERGE_THREADS) {
+      const int e = base + tid;
+      const unsigned long long key = e < m ? sk[e] : 0ull;
+      const bool in_bin = e < m && ((key ^ prefix) & mask) == 0;
+      const unsigned digit = (unsigned)(key >> shift) & 255u;
+      const unsigned act = __ballot_sync(FULL, in_bin);
+      if (in_bin) {
+        const unsigned peers = __match_any_sync(act, digit);
+        if ((peers & ((1u << lane) - 1)) == 0) atomicAdd(&hist[digit], __popc(peers));
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {  // lane l scans bins 8l .. 8l + 7
+      unsigned h[8], sum = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        h[i] = hist[8 * lane + i];
+        sum += h[i];
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned o = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += o;
+      }
+      unsigned below = incl - sum;
+      if (below < (unsigned)need && (unsigned)need <= incl) {
+        int i = 0;
+        while (below + h[i] < (unsigned)need) below += h[i++];
+        s_prefix = prefix | ((unsigned long long)(8 * lane + i) << shift);
+        s_need = need - (int)below;
+        s_done = h[i] == (unsigned)(need - (int)below);
+      }
+    }
+    __syncthreads();
+    prefix = s_prefix;
+    need = s_need;
+    mask |= 0xffull << shift;
+    if (s_done) break;
+  }
+
+  // Every key below lim is taken; keys equal to it fill what is left.
+  const unsigned long long lim = prefix | ~mask;
+  if (tid == 0) s_count = 0;
+  __syncthreads();
+  for (int e = tid; e < m; e += MERGE_THREADS)
+    if (sk[e] < lim) sel[atomicAdd(&s_count, 1)] = sk[e];
+  __syncthreads();
+  for (int e = tid; e < m; e += MERGE_THREADS)
+    if (sk[e] == lim) {
+      const int pos = atomicAdd(&s_count, 1);
+      if (pos < take) sel[pos] = lim;
+    }
+  __syncthreads();
+  for (int e = take + tid; e < kp; e += MERGE_THREADS) sel[e] = ~0ull;
+  for (int size = 2; size <= kp; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int e = tid; e < kp / 2; e += MERGE_THREADS) {
+        const int a = 2 * e - (e & (stride - 1));
+        const int z = a + stride;
+        const bool up = (a & size) == 0;
+        const unsigned long long x = sel[a], y = sel[z];
+        if ((x > y) == up) {
+          sel[a] = y;
+          sel[z] = x;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (EMIT) {
+    const float qsq = block_sqnorm(q + (size_t)b * D, D, l2, red);
+    for (int j = tid; j < k; j += MERGE_THREADS)
+      emit(sel[j], qsq, l2, od, oi, (size_t)b * k + j);
+  } else {
+    unsigned long long* dst = out + ((size_t)b * gridDim.x + c) * k;
+    for (int j = tid; j < k; j += MERGE_THREADS) dst[j] = sel[j];
+  }
+}
+
+// ------------------------------------------------------ host: tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda.so.1, which the process has
+// loaded already (PyTorch's CUDA context), so the library takes it from
+// there and links nothing beyond the runtime.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// The [rows, cols] u64 keys in rows of stride u64 (an even count: 16-byte
+// rows), written in boxes of 64 queries x STORE_TILES tiles.
+int encode_keys(EncodeTiled enc, CUtensorMap* m, void* base, int cols,
+                int stride, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * 8};
+  const cuuint32_t box[2] = {STORE_TILES, WG_Q};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT64, 2, base, dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// rows x cols bf16, row-major, in boxes of 128 rows x 64 columns, 128-byte
+// swizzled; past the edges TMA fills zeros.
+int encode_rows(EncodeTiled enc, CUtensorMap* m, const void* base, int cols,
+                int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {BOX, GROUP};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// n f32 in boxes of one tile's 128.
+int encode_bias(EncodeTiled enc, CUtensorMap* m, const float* base, int n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t box[1] = {GROUP};
+  const cuuint32_t elem[1] = {1};
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                         const_cast<float*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+Layout scan_layout(int Dp) {
+  Layout L{};
+  L.nb = Dp / BOX;
+  const int fixed = STORE_BYTES + TILE_STAGES * TILE_BYTES +
+                    (2 * MAX_STAGES + 2 * TILE_STAGES + 1) * 8 + 1024;
+  int room = SMEM_LIMIT - fixed - L.nb * BOX_BYTES;
+  L.resident = room >= MIN_RESIDENT_STAGES * BOX_BYTES;
+  L.stage_bytes = L.resident ? BOX_BYTES : 2 * BOX_BYTES;
+  if (!L.resident) room = SMEM_LIMIT - fixed;
+  L.stages = min(MAX_STAGES, room / L.stage_bytes);
+  return L;
+}
+
+// Lets the scan and the select kernels take more than 48 KB of shared
+// memory, once per device.
+cudaError_t opt_in_shared_memory() {
+  static unsigned done = 0;  // one bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 32 && (done >> dev) & 1u)) return e;
+  const int select_most = (SELECT_CHUNK + 256) * (int)sizeof(unsigned long long);
+  const void* scans[] = {(const void*)k2_scan_kernel<0>, (const void*)k2_scan_kernel<1>,
+                         (const void*)k2_scan_kernel<2>, (const void*)k2_scan_kernel<3>};
+  for (const void* f : scans)
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k2_select_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, select_most);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k2_select_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, select_most);
+  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  return e;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2.  q: [B, D] f32, the queries as given (cosine ones are normalized
+// here); valid [cap] u8; x_sq [cap] f32; xb: the [cap, Dp] bf16 mirror (Dp
+// a multiple of 64, 16-byte aligned).  Scratch: qb [B, Dp] bf16 and bias
+// [G * 128] f32 (G = ceil(cap / 128)), both 16-byte aligned; keys [B,
+// stride], stride >= G even; part [B, ceil(G / 8192) * k] when G > 8192,
+// else unused.  od/oi: [B, k] results.  splits: arena slices along the
+// grid's y.
+int ehtorch_k2(const float* q, const uint8_t* valid, const float* x_sq,
+               const void* xb, void* qb, float* bias, unsigned long long* keys,
+               unsigned long long* part, float* od, int* oi, int B, int cap,
+               int D, int Dp, int stride, int k, int l2, int cosine, int splits,
+               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return NO_LIBCUDA;
+  const int n_tiles = (cap + GROUP - 1) / GROUP;
+  CUtensorMap xmap, qmap, bmap, kmap;
+  int err = encode_rows(enc, &xmap, xb, Dp, cap);
+  if (!err) err = encode_rows(enc, &qmap, qb, Dp, B);
+  if (!err) err = encode_bias(enc, &bmap, bias, n_tiles * GROUP);
+  if (!err) err = encode_keys(enc, &kmap, keys, n_tiles, stride, B);
+  if (err) return err;
+
+  k2_queries_kernel<<<B, MERGE_THREADS, 0, s>>>(
+      q, static_cast<__nv_bfloat16*>(qb), D, Dp, cosine);
+  k2_bias_kernel<<<(n_tiles * GROUP + 255) / 256, 256, 0, s>>>(
+      valid, x_sq, bias, cap, n_tiles * GROUP, l2);
+  cudaError_t e = opt_in_shared_memory();
+  if (e != cudaSuccess) return (int)e;
+  const Layout L = scan_layout(Dp);
+  // Slices start on a multiple of STORE_TILES: a TMA store of keys never
+  // crosses into another block's tiles.
+  int per = (n_tiles + splits - 1) / splits;
+  per = (per + STORE_TILES - 1) / STORE_TILES * STORE_TILES;
+  const dim3 grid((B + BLOCK_Q - 1) / BLOCK_Q, (n_tiles + per - 1) / per);
+  // A resident query tile of up to 3 boxes goes in registers (RS), when
+  // the ring holds two tiles (at 4 boxes it holds 7 stages, not 8).
+  const int rs = L.resident && L.nb <= 3 && L.stages >= 2 * L.nb ? L.nb : 0;
+  auto scan = rs == 1 ? k2_scan_kernel<1> : rs == 2 ? k2_scan_kernel<2>
+            : rs == 3 ? k2_scan_kernel<3> : k2_scan_kernel<0>;
+  scan<<<grid, THREADS, L.bytes(), s>>>(xmap, qmap, bmap, kmap, B, n_tiles, per, l2, L);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  int kp = 1;
+  while (kp < k) kp <<= 1;
+  const int most = (int)((SELECT_CHUNK + kp) * sizeof(unsigned long long));
+  int n = n_tiles;
+  unsigned long long* src = keys;
+  unsigned long long* dst = part;
+  while (n > SELECT_CHUNK) {  // each query's chunks down to k keys each
+    const int chunks = (n + SELECT_CHUNK - 1) / SELECT_CHUNK;
+    k2_select_kernel<false><<<dim3(chunks, B), MERGE_THREADS, most, s>>>(
+        src, n, stride, SELECT_CHUNK, k, kp, dst, nullptr, nullptr, nullptr, D, l2);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    n = stride = chunks * k;
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  const size_t smem = (size_t)(n + kp) * sizeof(unsigned long long);
+  k2_select_kernel<true><<<dim3(1, B), MERGE_THREADS, smem, s>>>(
+      src, n, stride, n, k, kp, nullptr, q, od, oi, D, l2);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

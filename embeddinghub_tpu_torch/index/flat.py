@@ -8,8 +8,12 @@ Storage model, as in the reference:
     ``[cap]`` liveness mask;
   * the device side is a lazily synced mirror on ``self.device``: rows
     preprocessed for the metric (cosine -> unit rows), their squared norms
-    and the mask.  Small dirty sets are scattered in place; a full sync
-    re-uploads.
+    and the mask, plus ``_dxb``, the preprocessed rows rounded to bf16 in
+    ``[cap, Dp]`` (``fused_topk.arena_bf16``, the padding columns zero),
+    which K2 scans; the f32 rows serve the exact kernel and the rerank.
+    ``_dxb`` is derived state, never saved: it adds 2 * Dp bytes a row
+    (256 MiB at 1M x 128).  Small dirty sets are scattered in place; a full
+    sync re-uploads.
 
 Capacity starts small and doubles (the reference's policy, ``index.h:21``).
 
@@ -34,6 +38,8 @@ from embeddinghub_tpu_torch.index.base import (
 from embeddinghub_tpu_torch.ops import distance as dist_ops
 from embeddinghub_tpu_torch.ops import fused_topk
 from embeddinghub_tpu_torch.ops import topk as topk_ops
+from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
 
 # Past this row count the arena grows in 1M-row blocks (with 12.5 %
 # headroom) instead of doubling, which would strand up to 2x the memory.
@@ -92,7 +98,7 @@ class FlatIndex(Index):
         capacity: int = 128,
         chunk_target: int = 65536,
         storage_dtype: str = "float32",
-        device: torch.device | str = "cpu",
+        device: torch.device | str = DEFAULT_DEVICE,
     ):
         if metric not in dist_ops.METRICS:
             raise ValueError(f"unknown metric {metric!r}")
@@ -101,7 +107,7 @@ class FlatIndex(Index):
         self.dims = int(dims)
         self.metric = metric
         self.storage_dtype = storage_dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # chunk_target is accepted for the reference's signature and unused:
         # K1 and its plain version choose their own tiling.
         self._cap = _round_capacity(max(capacity, 128))
@@ -109,6 +115,7 @@ class FlatIndex(Index):
         self._hvalid = np.zeros((self._cap,), dtype=bool)
         self._size = 0
         self._dx = None
+        self._dxb = None
         self._dx_sq = None
         self._dvalid = None
         self._dirty_rows: set[int] = set()
@@ -172,6 +179,7 @@ class FlatIndex(Index):
         # here, on the way to the device.
         if self._needs_full_sync or self._dx is None:
             self._dx = dist_ops.preprocess_vectors(self._upload(self._hx), self.metric)
+            self._dxb = fused_topk.arena_bf16(self._dx)
             self._dx_sq = dist_ops.sqnorms(self._dx)
             self._dvalid = self._upload(self._hvalid)
             self._needs_full_sync = False
@@ -184,6 +192,7 @@ class FlatIndex(Index):
         r = self._upload(rows)
         vecs = dist_ops.preprocess_vectors(self._upload(self._hx[rows]), self.metric)
         self._dx.index_copy_(0, r, vecs)
+        self._dxb.index_copy_(0, r, fused_topk.arena_bf16(vecs))
         self._dx_sq.index_copy_(0, r, dist_ops.sqnorms(vecs))
         # the host mask carries the removes: scattering it re-invalidates them
         self._dvalid.index_copy_(0, r, self._upload(self._hvalid[rows]))
@@ -211,7 +220,7 @@ class FlatIndex(Index):
         q = self._upload(_round_queries(queries, query_dtype))
         if self._use_approx(kk, mode):
             return topk_ops.approx_oversample_search(
-                q, self._dx, self._dvalid, self._dx_sq,
+                q, self._dx, self._dxb, self._dvalid, self._dx_sq,
                 metric=self.metric, k=kk, oversample=_OVERSAMPLE,
             )
         return topk_ops.exact_search(

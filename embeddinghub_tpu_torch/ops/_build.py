@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels in ``embeddinghub_tpu_torch/csrc``.
 
-The sources have a plain C interface, so ``nvcc`` compiles them in seconds
-into one shared library, loaded with :mod:`ctypes`.  The library goes to
+The sources have a plain C interface, so ``nvcc`` compiles them in seconds,
+one process per source, all started together, and links the objects into
+one shared library, loaded with :mod:`ctypes`.  The library goes to
 ``embeddinghub_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and flags: the first call after a change builds, every later call
 in any process loads.  Nothing is taken from outside the checkout but the
@@ -24,7 +25,7 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -32,7 +33,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # does not cut them to 32 bits.
 _SIGNATURES = {
     "ehtorch_fused_topk": [_P] * 8 + [_I] * 9 + [_P],
-    "ehtorch_fused_topk_v2": [_P] * 8 + [_I] * 8 + [_P],
+    "ehtorch_k2": [_P] * 10 + [_I] * 9 + [_P],
     "ehtorch_radix_store": [_P] * 5 + [_I] * 7 + [_P],
     "ehtorch_radix_pass": [_P] * 6 + [_I] * 5 + [_P],
     "ehtorch_radix_collect": [_P] * 8 + [_I] * 7 + [_P],
@@ -58,7 +59,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):  # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libehtorch_{h.hexdigest()[:16]}.so"
@@ -71,19 +72,27 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a private name, then rename: concurrent builds never load
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    # Build in a private directory, then rename: concurrent builds never
+    # load a half-written library.
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        _run_all([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        lib = Path(tmp) / "lib.so"
+        _run_all([[nvcc, *_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, out)
     return out
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output once all have ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
 
 
 @functools.cache

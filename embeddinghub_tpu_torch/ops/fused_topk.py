@@ -1,29 +1,33 @@
-"""Fused distance + running top-k: the counterpart of
+"""Fused distance + top-k: the counterpart of
 ``embeddinghub_tpu/ops/pallas_topk.py``.
 
-Two kernels, both hand-written CUDA in ``csrc/fused_topk.cu``:
+Two kernels, both hand-written CUDA for sm_90a:
 
-  * K1, :func:`fused_topk_search` -- exact k-NN.  The port's exact engine:
-    ``chunked_topk_search`` on CUDA is K1.  Its running lists serve k up to
-    ``MAX_K_EXACT``; :func:`exact_topk_large_k` is its route for any larger
-    k up to the capacity (the same product into a score buffer, radix
-    select, then a bitonic sort), as the Pallas K1 has no k limit.
+  * K1, :func:`fused_topk_search` -- exact k-NN, ``csrc/fused_topk.cu``.
+    The port's exact engine: ``chunked_topk_search`` on CUDA is K1.  Its
+    running lists serve k up to ``MAX_K_EXACT``; :func:`exact_topk_large_k`
+    is its route for any larger k up to the capacity (the same product into
+    a score buffer, radix select, then a bitonic sort), as the Pallas K1 has
+    no k limit.
   * K2, :func:`fused_topk_search_v2` -- approximate candidates, one bf16
-    winner per group of 128 consecutive rows, then a running top-k over
-    the winners.  The candidate stage of ``approx_oversample_search``.
+    winner per group of 128 consecutive rows, then the k best winners,
+    ``csrc/k2_scan.cu``: TMA loads of a bf16 mirror of the arena and wgmma
+    products, group winners as 64-bit keys into a ``[B, cap/128]`` buffer,
+    then a radix select per query.  The candidate stage of
+    ``approx_oversample_search``.
 
-K1's lists and K2 never write the ``[B, cap]`` score matrix to device
-memory, which is the point: ``q @ x.T`` then ``torch.topk`` would write
-16 GB at 1M rows and B=4096.  The large-k route writes it for as many
-queries at a time as ``SCORE_BUFFER_BYTES`` holds.
+Neither writes the ``[B, cap]`` score matrix to device memory, which is
+the point: ``q @ x.T`` then ``torch.topk`` would write 16 GB at 1M rows and
+B=4096.  K1's large-k route writes it for as many queries at a time as
+``SCORE_BUFFER_BYTES`` holds; K2 writes one key per 128 rows.
 
 The public functions keep the JAX signatures and their ``ValueError``
 alignment contract, so tests compare like with like; ``chunk`` and
 ``block_b`` are checked, not used, because the CUDA kernels choose their own
-tiling.  The index calls :func:`exact_topk` and :func:`approx_candidates`
-instead: they take the row-major ``[cap, D]`` arena and any ``B`` and mask
-the ragged edges themselves, so the port keeps no transposed copy of the
-arena and pads nothing.
+tiling.  The index calls :func:`exact_topk` on its row-major ``[cap, D]``
+f32 arena and :func:`approx_candidates` on the bf16 mirror of it
+(:func:`arena_bf16`); both take any ``B`` and mask the ragged edges
+themselves.
 
 Dispatch is by device.  Tensors on the CPU go to the plain PyTorch versions
 (``*_reference``), which compute the same function; tensors on a CUDA
@@ -44,15 +48,26 @@ INF = float("inf")
 GROUP = 128            # K2's group width, the oracle's in the parity tests
 MAX_K_EXACT = 1024     # K1's running lists; past it, its large-k route
 MAX_K_APPROX = 256     # K2; the main path asks for k * 8 = 128
-_MERGE_SLOTS = 16384   # splits * k entries sorted per query by the merge pass
-_BQ, _BN = 64, 128     # the scan kernel's query and row tile (fused_topk.cu)
-# Scan blocks to aim for, per SM.  Measured on an H100 over B = 1..4096
-# (K1 k=16, K2 k=128, 1M rows), 2 was the best of 1, 2, 4 and 8, or
-# within 3 % of it, at every B; tools/sweep_splits.py reruns the sweep,
-# merge sizes included.
-# More splits mean more list fills (k=128 takes most group winners of a
-# short slice) and longer merges.
+MIRROR_BOX = 64        # K2's TMA box width in bf16 columns (k2_scan.cu)
+_MERGE_SLOTS = 16384   # K1: splits * k entries sorted per query by its merge
+_BQ, _BN = 64, 128     # K1's scan tile: queries, rows (fused_topk.cu)
+# K1's scan blocks to aim for, per SM.  Measured on an H100 over
+# B = 1..4096 (k=16, 1M rows), 2 was the best of 1, 2, 4 and 8, or within
+# 3 % of it, at every B; tools/sweep_splits.py reruns the sweep, merge sizes
+# included.  More splits mean more list fills and longer merges.
 _BLOCKS_PER_SM = 2
+# K2: queries per scan block (two wgmma warpgroups of 64) and the waves of
+# scan blocks to aim for, per SM (one block fits an SM); its slices need no
+# merge, so more only cost block set-up.  8 waves are 1056 blocks, a whole
+# number of waves for every power-of-two count of query tiles up to 32
+# (B <= 4096); tools/sweep_splits.py sweeps it.
+_K2_BQ = 128
+_K2_WAVES = 8
+_K2_SELECT_CHUNK = 8192  # keys a select block holds (k2_scan.cu SELECT_CHUNK)
+# K1's large-k route stores the [B, cap] scores, and K2 the [B, cap/128]
+# group winners, of as many queries at a time as fit in this many bytes
+# (one query at least).
+SCORE_BUFFER_BYTES = 1 << 30
 
 _launch_lock = threading.Lock()
 LAUNCHES = {"fused_topk_search": 0, "fused_topk_search_v2": 0,
@@ -93,13 +108,26 @@ def fused_topk_search(q, x, valid, x_sq, *, k=16, metric="l2", chunk=2048,
 def fused_topk_search_v2(q, xt, valid, x_sq, *, k=16, metric="l2",
                          chunk=8192, block_b=1024):
     """Approximate candidates (K2) from a pre-transposed ``xt [D, cap]``
-    arena, f32 or bf16.  Scores are bf16-graded; rerank downstream for
-    exact distances."""
+    arena, f32 or bf16, through its bf16 mirror.  Scores are bf16-graded;
+    rerank downstream for exact distances."""
     b, cap = q.shape[0], xt.shape[1]
     if cap % chunk or b % block_b or chunk % GROUP:
         raise ValueError(f"shape not aligned: cap={cap} chunk={chunk} B={b}")
-    x = xt.T.to(torch.float32).contiguous()
-    return approx_candidates(q, x, valid, x_sq, k=k, metric=metric)
+    return approx_candidates(q, arena_bf16(xt.T), valid, x_sq, k=k, metric=metric)
+
+
+def mirror_dims(dims: int) -> int:
+    """The bf16 mirror's width: ``dims`` rounded up to whole TMA boxes."""
+    return -(-dims // MIRROR_BOX) * MIRROR_BOX
+
+
+def arena_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 mirror K2 reads: ``x [n, D]`` rounded to bf16 (to nearest
+    even), in ``[n, mirror_dims(D)]`` with the padding columns zero."""
+    n, dims = x.shape
+    out = torch.zeros((n, mirror_dims(dims)), dtype=torch.bfloat16, device=x.device)
+    out[:, :dims] = x
+    return out
 
 
 # -------------------------------------------------------- index entries
@@ -111,16 +139,17 @@ def exact_topk(q, x, valid, x_sq, *, k, metric, exact=True):
     if x.device.type == "cpu":
         return fused_topk_search_reference(q, x, valid, x_sq, k=k,
                                            metric=metric, exact=exact)
-    return _launch("fused_topk_search", q, x, valid, x_sq, k, metric, exact)
+    return _launch(q, x, valid, x_sq, k, metric, exact)
 
 
-def approx_candidates(q, x, valid, x_sq, *, k, metric):
-    """K2 over a row-major arena, any ``B`` and ``cap``."""
+def approx_candidates(q, xb, valid, x_sq, *, k, metric):
+    """K2 over the bf16 mirror ``xb`` (:func:`arena_bf16`) of a row-major
+    arena, any ``B`` and ``cap``."""
     _check_k(k, MAX_K_APPROX)
-    if x.device.type == "cpu":
-        return fused_topk_search_v2_reference(q, x, valid, x_sq, k=k,
+    if xb.device.type == "cpu":
+        return fused_topk_search_v2_reference(q, xb, valid, x_sq, k=k,
                                               metric=metric)
-    return _launch("fused_topk_search_v2", q, x, valid, x_sq, k, metric, False)
+    return _launch_k2(q, xb, valid, x_sq, k, metric)
 
 
 def exact_topk_large_k(q, x, valid, x_sq, *, k, metric, exact=True):
@@ -158,9 +187,10 @@ def _epilogue(best_s, best_i, q, metric):
 # ------------------------------------------------------------ the kernels
 
 
-def _checked(name, q, x, valid, x_sq, metric):
-    """The launch's inputs on one CUDA device, contiguous, queries
-    prepared for the metric."""
+def _checked(name, q, x, valid, x_sq, metric, mirror=False):
+    """The launch's inputs on one CUDA device and contiguous; the queries
+    as f32, contiguous.  ``x`` is the f32 arena, or with ``mirror`` its
+    bf16 mirror."""
     if metric not in D.METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     dev = x.device
@@ -168,8 +198,10 @@ def _checked(name, q, x, valid, x_sq, metric):
         raise RuntimeError(f"{name}: tensors on {dev}; expected cpu or cuda")
     dims = q.shape[1]
     cap = x.shape[0]
+    arena = ((torch.bfloat16, (cap, mirror_dims(dims))) if mirror
+             else (torch.float32, (cap, dims)))
     for t, what, dtype, shape in (
-        (x, "x", torch.float32, (cap, dims)),
+        (x, "x", *arena),
         (valid, "valid", torch.bool, (cap,)),
         (x_sq, "x_sq", torch.float32, (cap,)),
     ):
@@ -180,21 +212,25 @@ def _checked(name, q, x, valid, x_sq, metric):
             raise ValueError(f"{name}: {what} must be contiguous")
     if q.device != dev:
         raise ValueError(f"{name}: queries on {q.device}, arena on {dev}")
-    return _prep_query(q, metric).contiguous()
+    return q.to(torch.float32).contiguous()
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _splits(b, cap, dev, most):
-    """Scan blocks along the arena: ``(splits, tiles per split)``."""
+    """K1's scan blocks along the arena: ``(splits, tiles per split)``."""
     n_tiles = -(-cap // _BN)
     q_tiles = -(-b // _BQ)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-_BLOCKS_PER_SM * sms // q_tiles), n_tiles, most))
+    splits = max(1, min(-(-_BLOCKS_PER_SM * _sms(dev) // q_tiles), n_tiles, most))
     per_split = -(-n_tiles // splits)
     return -(-n_tiles // per_split), per_split
 
 
-def _launch(name, q, x, valid, x_sq, k, metric, exact):
-    q = _checked(name, q, x, valid, x_sq, metric)
+def _launch(q, x, valid, x_sq, k, metric, exact):
+    name = "fused_topk_search"
+    q = _prep_query(_checked(name, q, x, valid, x_sq, metric), metric)
     dev = x.device
     b, dims = q.shape
     cap = x.shape[0]
@@ -211,18 +247,60 @@ def _launch(name, q, x, valid, x_sq, k, metric, exact):
     oi = torch.empty((b, k), dtype=torch.int32, device=dev)
     lib = _build.library()
     ptrs = [t.data_ptr() for t in (q, x, valid, x_sq, pd, pi, od, oi)]
-    ints = [b, cap, dims, k, int(metric == "l2")]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if name == "fused_topk_search":
-            err = lib.ehtorch_fused_topk(
-                *ptrs, *ints, int(exact), splits, per_split, slots,
-                ctypes.c_void_p(stream))
-        else:
-            err = lib.ehtorch_fused_topk_v2(
-                *ptrs, *ints, splits, per_split, slots, ctypes.c_void_p(stream))
+        err = lib.ehtorch_fused_topk(
+            *ptrs, b, cap, dims, k, int(metric == "l2"), int(exact), splits,
+            per_split, slots, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    _count(name)
+    return od, oi
+
+
+def _k2_splits(b, cap, dev):
+    """K2's arena slices: enough scan blocks for ``_K2_WAVES`` per SM."""
+    q_tiles = -(-b // _K2_BQ)
+    return max(1, min(-(-cap // GROUP), -(-_K2_WAVES * _sms(dev) // q_tiles)))
+
+
+def _launch_k2(q, xb, valid, x_sq, k, metric):
+    name = "fused_topk_search_v2"
+    q = _checked(name, q, xb, valid, x_sq, metric, mirror=True)
+    dev = xb.device
+    b, dims = q.shape
+    cap, dp = xb.shape
+    od = torch.empty((b, k), dtype=torch.float32, device=dev)
+    oi = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return od, oi
+    n_groups = -(-cap // GROUP)
+    # Scratch: the queries in bf16, each row's bias (k2_scan.cu makes both),
+    # and the [queries, groups] keys of as many queries at a time as
+    # SCORE_BUFFER_BYTES holds, in rows of an even count (a multiple of 16
+    # bytes, TMA's rule for a row stride).
+    qb = torch.empty((b, dp), dtype=torch.bfloat16, device=dev)
+    bias = torch.empty((n_groups * GROUP,), dtype=torch.float32, device=dev)
+    stride = n_groups + n_groups % 2
+    group = max(1, min(b, SCORE_BUFFER_BYTES // (8 * stride)))
+    keys = torch.empty((group, stride), dtype=torch.int64, device=dev)
+    part = (torch.empty((group, -(-n_groups // _K2_SELECT_CHUNK) * k),
+                        dtype=torch.int64, device=dev)
+            if n_groups > _K2_SELECT_CHUNK else None)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        for g0 in range(0, b, group):
+            g = min(group, b - g0)
+            err = lib.ehtorch_k2(
+                q[g0:].data_ptr(), valid.data_ptr(), x_sq.data_ptr(), xb.data_ptr(),
+                qb[g0:].data_ptr(), bias.data_ptr(), keys.data_ptr(),
+                None if part is None else part.data_ptr(),
+                od[g0:].data_ptr(), oi[g0:].data_ptr(), g, cap, dims, dp, stride, k,
+                int(metric == "l2"), int(metric == "cosine"), _k2_splits(g, cap, dev),
+                stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     _count(name)
     return od, oi
 
@@ -231,15 +309,12 @@ def _launch(name, q, x, valid, x_sq, k, metric, exact):
 # four, then the row's (fused_topk.cu, "K1 past k = 1024").
 _SCORE_SHIFTS = (56, 48, 40, 32)
 _ROW_SHIFTS = (24, 16, 8, 0)
-# The large-k route stores the [B, cap] scores of as many queries at a time
-# as fit in this many bytes (one query at least).
-SCORE_BUFFER_BYTES = 1 << 30
 _RADIX_BLOCKS_PER_SM = 8  # 128-thread blocks of the radix passes
 
 
 def _launch_large_k(q, x, valid, x_sq, k, metric, exact):
     name = "fused_topk_search_large_k"
-    q = _checked(name, q, x, valid, x_sq, metric)
+    q = _prep_query(_checked(name, q, x, valid, x_sq, metric), metric)
     dev = x.device
     b, dims = q.shape
     cap = x.shape[0]
@@ -251,7 +326,7 @@ def _launch_large_k(q, x, valid, x_sq, k, metric, exact):
     row_len = -(-cap // _BN) * _BN
     group = max(1, min(b, SCORE_BUFFER_BYTES // (4 * row_len)))
     slots = 1 << (k - 1).bit_length()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _sms(dev)
     i32 = dict(dtype=torch.int32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     scores = torch.empty((group, row_len), dtype=torch.float32, device=dev)
@@ -344,18 +419,20 @@ def fused_topk_search_large_k_reference(q, x, valid, x_sq, *, k, metric="l2",
                                        exact=exact, chunk=min(chunk, cap))
 
 
-def fused_topk_search_v2_reference(q, x, valid, x_sq, *, k=16, metric="l2",
+def fused_topk_search_v2_reference(q, xb, valid, x_sq, *, k=16, metric="l2",
                                    chunk=65536):
-    """Plain PyTorch K2 over a row-major arena: bf16-rounded operands, f32
-    sums, the (min, first argmin) of each 128-row group, then a running
-    top-k over the group winners.  ``chunk`` must be a multiple of 128."""
+    """Plain PyTorch K2 over the bf16 mirror ``xb`` of a row-major arena:
+    bf16-rounded operands, f32 sums, the (min, first argmin) of each 128-row
+    group, then a running top-k over the group winners.  ``chunk`` must be
+    a multiple of 128."""
     q = _prep_query(q, metric)
     qc = D.round_bf16(q)
-    b, cap = q.shape[0], x.shape[0]
+    b, dims = q.shape
+    cap = xb.shape[0]
     best_s = torch.full((b, k), INF, dtype=torch.float32, device=q.device)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=q.device)
     for s in range(0, cap, chunk):
-        xs = D.round_bf16(x[s:s + chunk].to(torch.float32))
+        xs = D.round_bf16(xb[s:s + chunk, :dims].to(torch.float32))
         dots = qc @ xs.T
         sc = x_sq[s:s + chunk][None, :] - 2.0 * dots if metric == "l2" else -dots
         sc = torch.where(valid[s:s + chunk][None, :], sc, INF)

@@ -9,8 +9,9 @@ On CUDA the two searches run on the hand-written kernels of
     for ``k`` up to ``MAX_K_EXACT``, its large-k route above that, up to
     the arena's capacity;
   * :func:`approx_oversample_search` is K2 for ``k * oversample`` bf16
-    candidates, then an f32 rerank of those candidates in PyTorch, as the
-    reference left the rerank to XLA outside its kernels.
+    candidates, scored on the arena's bf16 mirror, then an f32 rerank of
+    those candidates on the f32 arena in PyTorch, as the reference left the
+    rerank to XLA outside its kernels.
 
 PyTorch has neither XLA's fused chunked scan nor ``lax.approx_max_k``; a
 plain ``q @ x.T`` + ``torch.topk`` would write the whole ``[B, N]`` score
@@ -62,11 +63,12 @@ def exact_search(q, x, valid, x_sq, *, metric="l2", k=10, exact=True):
                                          exact=exact)
 
 
-def approx_oversample_search(q, x, valid, x_sq, *, metric="l2", k=10,
+def approx_oversample_search(q, x, xb, valid, x_sq, *, metric="l2", k=10,
                              oversample=8):
-    """Fast path: K2 picks ``k * oversample`` bf16-graded candidates, then an
-    exact f32 rerank of just those keeps the best ``k``."""
-    _, cand = fused_topk.approx_candidates(q, x, valid, x_sq,
+    """Fast path: K2 picks ``k * oversample`` bf16-graded candidates from
+    ``xb``, the bf16 mirror of ``x`` (``fused_topk.arena_bf16``), then an
+    exact f32 rerank of just those on ``x`` keeps the best ``k``."""
+    _, cand = fused_topk.approx_candidates(q, xb, valid, x_sq,
                                            k=k * oversample, metric=metric)
     q = q.to(torch.float32)
     if metric == "cosine":

@@ -7,7 +7,7 @@ and, through it, jax).  Same constructor, same methods
 ``multiset``/``multiget``/``nearest_neighbor``/``nearest_neighbor_batch``/
 ``download``), same ``wait=False`` futures, same ``TypeError`` on writes to
 a frozen space.  It talks to either package's server: the wire format is
-the reference's proto.
+the reference's proto, of which the port keeps its own copy.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ from collections.abc import Mapping
 
 import grpc
 
-from embeddinghub_tpu.service.proto import embedding_store_pb2 as pb
-from embeddinghub_tpu.service.proto import embedding_store_pb2_grpc as pb_grpc
-from embeddinghub_tpu.utils.channels import make_channel
+from embeddinghub_tpu_torch.service.proto import embedding_store_pb2 as pb
+from embeddinghub_tpu_torch.service.proto import embedding_store_pb2_grpc as pb_grpc
+from embeddinghub_tpu_torch.utils.channels import make_channel
 
 
 class EmbeddingHubClient:

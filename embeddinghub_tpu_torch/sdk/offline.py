@@ -3,8 +3,8 @@
 The twin of ``embeddinghub_tpu/sdk/offline.py``: the ``Index`` surface
 (``set``/``get``/``multiset``/``multiget``/``nearest_neighbor``/``size``)
 for local training workflows, on the port's ``FlatIndex`` on an explicit
-``device`` (default ``"cpu"``, as ``EmbeddingHub``'s).  On CUDA its
-searches run the port's kernels.
+``device`` (default ``"cuda"``, as ``EmbeddingHub``'s; ``"cpu"`` only when
+asked for).  On CUDA its searches run the port's kernels.
 
 Example::
 
@@ -23,13 +23,15 @@ import torch
 from embeddinghub_tpu_torch.index.flat import FlatIndex
 from embeddinghub_tpu_torch.ops import distance as dist_ops
 from embeddinghub_tpu_torch.store.keymap import KeyMap
+from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
 
 
 class Index:
     def __init__(self, key_emb_iter, dims: int, metric: str = "l2",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         self._dims = int(dims)
-        device = torch.device(device)
+        device = resolve_device(device)
         if device.type == "cuda":
             dist_ops.full_f32()
         self._idx = FlatIndex(self._dims, metric=metric, capacity=1024, device=device)

@@ -1,12 +1,13 @@
 """EmbeddingHub gRPC server on the PyTorch port.
 
 The twin of ``embeddinghub_tpu/service/server.py``: the same 9 RPCs plus
-``BatchNearestNeighbor``, on the reference's proto stubs, with the same
-status codes (spaces use version "initial"; NearestNeighbor takes a key XOR
-an embedding and drops the key itself from a keyed answer; writes to a
-frozen space fail with FAILED_PRECONDITION).  Concurrent NearestNeighbor
-RPCs go through the reference's jax-free :class:`QueryBatcher`, which fuses
-them into one ``nearest_batch`` per version.
+``BatchNearestNeighbor``, on the reference's proto (the port's copy of it,
+``service/proto``), with the same status codes (spaces use version
+"initial"; NearestNeighbor takes a key XOR an embedding and drops the key
+itself from a keyed answer; writes to a frozen space fail with
+FAILED_PRECONDITION).  Concurrent NearestNeighbor
+RPCs go through :class:`QueryBatcher` (the port's copy of the reference's),
+which fuses them into one ``nearest_batch`` per version.
 
 The store lives on one ``torch.device``.  With a data directory it is
 persistent, as the reference's server is by default: every acknowledged
@@ -29,17 +30,18 @@ import grpc
 import numpy as np
 import torch
 
-from embeddinghub_tpu.featurestore.interceptors import make_server
-from embeddinghub_tpu.service.batcher import QueryBatcher
-from embeddinghub_tpu.service.proto import embedding_store_pb2 as pb
-from embeddinghub_tpu.service.proto import embedding_store_pb2_grpc as pb_grpc
-from embeddinghub_tpu.utils.channels import add_server_port
-from embeddinghub_tpu.utils.config import get_config
 from embeddinghub_tpu_torch.ops import fused_topk
+from embeddinghub_tpu_torch.service.batcher import QueryBatcher
+from embeddinghub_tpu_torch.service.interceptors import make_server
+from embeddinghub_tpu_torch.service.proto import embedding_store_pb2 as pb
+from embeddinghub_tpu_torch.service.proto import embedding_store_pb2_grpc as pb_grpc
 from embeddinghub_tpu_torch.service.spawn import LAUNCHES_TAG
 from embeddinghub_tpu_torch.store import errors as store_errors
 from embeddinghub_tpu_torch.store.hub import EmbeddingHub
 from embeddinghub_tpu_torch.store.space import DEFAULT_VERSION
+from embeddinghub_tpu_torch.utils.channels import add_server_port
+from embeddinghub_tpu_torch.utils.config import get_config
+from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
 
 _CODE_MAP = {
     "NOT_FOUND": grpc.StatusCode.NOT_FOUND,
@@ -287,10 +289,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="torch device of the store (default %(default)s); "
                     "a CUDA device that is not there is an error")
     ns = ap.parse_args(argv if argv is not None else sys.argv[1:])
-    device = torch.device(ns.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {ns.device}: CUDA is not available")
-    run_server(ns.address, device, ns.data_dir or ns.data_dir_pos or cfg.data_dir)
+    run_server(ns.address, resolve_device(ns.device),
+               ns.data_dir or ns.data_dir_pos or cfg.data_dir)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """EmbeddingHub: the store root.
 
 The twin of ``embeddinghub_tpu/store/hub.py``, on one explicit
-``torch.device`` that every space's index is created or loaded on.  On
-CUDA it turns TF32 off for the process (``ops/distance.py`` says why):
+``torch.device`` that every space's index is created or loaded on:
+``"cuda"`` unless the caller passes another (on a host without CUDA that
+default raises).  On CUDA it turns TF32 off for the process
+(``ops/distance.py`` says why):
 
   * ``load_or_create(path)`` opens a data directory (``manifest.json``,
     written atomically, plus one directory per space) or starts one;
@@ -29,6 +31,8 @@ import torch
 
 from embeddinghub_tpu_torch.ops import distance as dist_ops
 from embeddinghub_tpu_torch.store.space import DEFAULT_VERSION, Space
+from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
 
 # engine -> the ROADMAP.md queue 1 item that ports it
 _NOT_PORTED = {
@@ -48,7 +52,7 @@ class EmbeddingHub:
         self,
         base_path: str | Path | None = None,
         engine: str = "flat",
-        device: torch.device | str = "cpu",
+        device: torch.device | str = DEFAULT_DEVICE,
     ):
         if engine in _NOT_PORTED:
             raise NotImplementedError(
@@ -59,7 +63,7 @@ class EmbeddingHub:
             raise ValueError(f"unknown engine {engine!r}")
         self.base_path = Path(base_path) if base_path is not None else None
         self.engine = engine
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if self.device.type == "cuda":
             dist_ops.full_f32()
         self._spaces: dict[str, Space] = {}

@@ -35,6 +35,7 @@ from embeddinghub_tpu_torch.index.flat import FlatIndex
 from embeddinghub_tpu_torch.store import errors
 from embeddinghub_tpu_torch.store.keymap import KeyMap
 from embeddinghub_tpu_torch.store.version import Version
+from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 
 _TAG_SET = 1
 _TAG_DELETE = 2
@@ -197,7 +198,7 @@ def save_version(vdir: str | Path, version) -> None:
 
 
 def load_version(vdir: str | Path, wal_path: str | Path | None = None,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
     """Open a snapshot (copy-on-write mmaps of its arrays) on ``device``,
     then replay the WAL at ``wal_path`` and keep appending to it."""
     vdir = Path(vdir)

@@ -19,12 +19,14 @@ from embeddinghub_tpu_torch.store.persistence import (
     save_version,
 )
 from embeddinghub_tpu_torch.store.version import Version
+from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 
 DEFAULT_VERSION = "initial"
 
 
 class Space:
-    def __init__(self, name: str, path: str | Path | None = None, device="cpu"):
+    def __init__(self, name: str, path: str | Path | None = None,
+                 device=DEFAULT_DEVICE):
         self.name = name
         self.path = Path(path) if path is not None else None
         self.device = device
@@ -65,7 +67,7 @@ class Space:
             save_version(self.path / name, version)
 
     @classmethod
-    def load(cls, name: str, path: str | Path, device="cpu") -> "Space":
+    def load(cls, name: str, path: str | Path, device=DEFAULT_DEVICE) -> "Space":
         space = cls(name, path, device=device)
         path = Path(path)
         if path.exists():

@@ -24,6 +24,7 @@ from embeddinghub_tpu_torch.index.base import Index
 from embeddinghub_tpu_torch.index.flat import FlatIndex
 from embeddinghub_tpu_torch.store import errors
 from embeddinghub_tpu_torch.store.keymap import KeyMap
+from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 
 
 class Version:
@@ -34,7 +35,7 @@ class Version:
         dims: int,
         metric: str = "l2",
         index: Index | None = None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         wal=None,
     ):
         self.space = space

@@ -1,12 +1,17 @@
-"""The port imports torch and never jax.
+"""The port imports torch and never jax, and nothing of the JAX package
+(``embeddinghub_tpu``), not even its jax-free modules.
 
-The check runs in a subprocess because ``tests/conftest.py`` imports jax
-into every test process.
+The import check runs in a subprocess because ``tests/conftest.py`` imports
+jax and the JAX package into every test process.  A second check reads the
+import statements of every source file of the port and of
+``chip_smoke.py``, which import inside functions too.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -17,10 +22,15 @@ import sys
 before = set(sys.modules)
 import {mods}
 new = set(sys.modules) - before
-leaked = sorted(m for m in new if m == "jax" or m.startswith(("jax.", "jaxlib")))
+leaked = sorted(m for m in new if m in ("jax", "embeddinghub_tpu")
+                or m.startswith(("jax.", "jaxlib", "embeddinghub_tpu.")))
 print("LEAKED", leaked)
 sys.exit(1 if leaked else 0)
 """
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "embeddinghub_tpu")
 
 
 @pytest.mark.parametrize("mods", [
@@ -38,6 +48,10 @@ sys.exit(1 if leaked else 0)
     "embeddinghub_tpu_torch.sdk.client",
     "embeddinghub_tpu_torch.sdk.offline",
     "embeddinghub_tpu_torch.sdk.repl",
+    "embeddinghub_tpu_torch.service.batcher, embeddinghub_tpu_torch.service.interceptors, "
+    "embeddinghub_tpu_torch.service.proto",
+    "embeddinghub_tpu_torch.utils.config, embeddinghub_tpu_torch.utils.channels, "
+    "embeddinghub_tpu_torch.utils.device",
 ])
 def test_port_imports_no_jax(mods):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -56,3 +70,23 @@ def test_package_import_skips_server():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _sources():
+    port = Path(REPO) / "embeddinghub_tpu_torch"
+    return sorted(port.rglob("*.py")) + [Path(REPO) / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_statement_names_the_jax_package(path):
+    """Every ``import`` and ``from ... import`` of the file, at any depth
+    (functions included): none names jax or the JAX package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"

@@ -73,10 +73,16 @@ def test_replay_other_packages_wal(tmp_path, writer, tear):
     assert len(port) == (n_full if tear is None else n_full - 1)
 
 
+def _on_cpu(hub_cls) -> dict:
+    """The port's hub takes ``device="cpu"`` here; the JAX package's has no
+    such argument."""
+    return {"device": "cpu"} if hub_cls is EmbeddingHub else {}
+
+
 def _fill(hub_cls, base, seed):
     """Snapshot + WAL tail + a delete + a freeze in space "a" (l2); space
     "b" (cosine) has a WAL and no snapshot."""
-    hub = hub_cls.load_or_create(base)
+    hub = hub_cls.load_or_create(base, **_on_cpu(hub_cls))
     va = hub.create_space("a", D, "l2").default_version()
     va.multiset((f"k{i}", v) for i, v in enumerate(_vecs(seed, 300)))
     va.delete("k7")
@@ -110,7 +116,7 @@ def _assert_versions_equal(port, ref, queries):
 def test_data_dir_opens_in_the_other_package(tmp_path, writer):
     w_cls, r_cls = (JaxHub, EmbeddingHub) if writer == "jax" else (EmbeddingHub, JaxHub)
     written = _fill(w_cls, tmp_path / "store", seed=10)
-    opened = r_cls.load_or_create(tmp_path / "store")
+    opened = r_cls.load_or_create(tmp_path / "store", **_on_cpu(r_cls))
     assert sorted(opened.spaces()) == ["a", "b"]
     queries = _vecs(20, 7)
     for name in ("a", "b"):
@@ -121,7 +127,7 @@ def test_data_dir_opens_in_the_other_package(tmp_path, writer):
     # the opened store keeps writing to the same WAL
     vb = opened.get_version("b")
     vb.set("late", _vecs(21, 1)[0])
-    again = EmbeddingHub.load_or_create(tmp_path / "store")
+    again = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")
     np.testing.assert_array_equal(again.get_version("b").get("late"), _vecs(21, 1)[0])
 
 
@@ -149,7 +155,7 @@ def test_batched_replay_equals_record_by_record(tmp_path, monkeypatch, batch):
     path = tmp_path / "wal.bin"
     _replay_wal(path)
     monkeypatch.setattr(persistence, "REPLAY_BATCH", batch)
-    port = Version("s", "initial", D, "l2")
+    port = Version("s", "initial", D, "l2", device="cpu")
     ref = JaxVersion("s", "initial", D, "l2")
     persistence._replay_into(port, path)
     jax_persistence._replay_into(ref, path)
@@ -161,7 +167,7 @@ def test_save_under_concurrent_writer_loses_no_acknowledged_write(tmp_path):
     """Writes acknowledged while ``save`` runs are either in the snapshot
     or in the WAL after it: the snapshot holds the version's lock from its
     array dump to the WAL truncate."""
-    hub = EmbeddingHub.load_or_create(tmp_path / "store")
+    hub = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")
     version = hub.create_space("w", D).default_version()
     acked: dict[str, np.ndarray] = {}
     stop = threading.Event()
@@ -189,14 +195,14 @@ def test_save_under_concurrent_writer_loses_no_acknowledged_write(tmp_path):
         t.join(timeout=60)
     assert not t.is_alive() and not errors
     assert len(acked) > 0
-    got = EmbeddingHub.load_or_create(tmp_path / "store").get_version("w")
+    got = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu").get_version("w")
     assert got.size == len(acked)
     for key, vec in acked.items():
         np.testing.assert_array_equal(got.get(key), vec)
 
 
 def test_hub_on_disk_semantics(tmp_path):
-    hub = EmbeddingHub.load_or_create(tmp_path / "store")
+    hub = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")
     hub.create_space("a", D)
     hub.create_space("gone", D).default_version().set("x", _vecs(40, 1)[0])
     assert (tmp_path / "store" / "gone" / "initial" / "wal.bin").exists()
@@ -209,14 +215,14 @@ def test_hub_on_disk_semantics(tmp_path):
     assert snaps == ["index-000000"] and snaps2 == ["index-000001"]
     again = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")
     assert again.spaces() == ["a"] and again.get_version("a").index.device.type == "cpu"
-    assert EmbeddingHub.in_memory().base_path is None
+    assert EmbeddingHub.in_memory(device="cpu").base_path is None
 
 
 def test_unported_snapshot_types_raise(tmp_path):
-    hub = EmbeddingHub.load_or_create(tmp_path / "store")
+    hub = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")
     hub.create_space("a", D).default_version().set("x", _vecs(41, 1)[0])
     hub.save()
     meta_path = tmp_path / "store" / "a" / "initial" / "meta.json"
     meta_path.write_text(meta_path.read_text().replace('"FlatIndex"', '"HNSWIndex"'))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmbeddingHub.load_or_create(tmp_path / "store")
+        EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")

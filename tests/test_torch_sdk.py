@@ -161,11 +161,12 @@ def _offline_ops(idx, vecs):
 def test_offline_index_matches_jax(metric):
     vecs = _vecs(11, 3000)  # grows past the initial capacity of 1024
     pairs = [(f"k{i}", v) for i, v in enumerate(vecs)]
-    port = Index(pairs, D, metric=metric)
+    port = Index(pairs, D, metric=metric, device="cpu")
     ref = JaxIndex(pairs, D, metric=metric)
     assert port._idx.device.type == "cpu"
     assert _offline_ops(port, vecs) == _offline_ops(ref, vecs)
-    assert Index({"a": [1, 2, 3]}, 3).size() == Index([], 3).size() + 1
+    assert (Index({"a": [1, 2, 3]}, 3, device="cpu").size()
+            == Index([], 3, device="cpu").size() + 1)
 
 
 def test_repl_runs_a_stdin_script():

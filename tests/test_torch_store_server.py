@@ -33,7 +33,7 @@ def _vecs(seed, n):
 
 
 def _pair(metric="l2"):
-    return Version("s", "initial", D, metric), JaxVersion("s", "initial", D, metric)
+    return Version("s", "initial", D, metric, device="cpu"), JaxVersion("s", "initial", D, metric)
 
 
 def test_error_classes_match():
@@ -114,7 +114,7 @@ def test_hub_semantics():
             EmbeddingHub.in_memory(engine=engine)
     with pytest.raises(ValueError):
         EmbeddingHub.in_memory(engine="nope")
-    assert Space("p").path is None and hub.base_path is None
+    assert Space("p", device="cpu").path is None and hub.base_path is None
 
 
 # ----------------------------------------------------------------- the slice

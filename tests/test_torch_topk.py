@@ -93,10 +93,12 @@ def test_approx_oversample_search(metric):
                                      interpret=True)
     jc = np.asarray(jc)
     from embeddinghub_tpu_torch.ops import fused_topk
-    _, tc = fused_topk.approx_candidates(*_t(q, x, valid, xsq), k=k * over, metric=metric)
+    tq, tx, tv, tsq = _t(q, x, valid, xsq)
+    xb = fused_topk.arena_bf16(tx)
+    _, tc = fused_topk.approx_candidates(tq, xb, tv, tsq, k=k * over, metric=metric)
     assert_ids_equal_off_ties(tc.numpy(), jc, np.asarray(jd), 1e-3)
 
-    td, ti = tt.approx_oversample_search(*_t(q, x, valid, xsq), metric=metric,
+    td, ti = tt.approx_oversample_search(tq, tx, xb, tv, tsq, metric=metric,
                                          k=k, oversample=over)
     # numpy rerank of the JAX candidates
     qn = q / np.linalg.norm(q, axis=1, keepdims=True) if metric == "cosine" else q
