@@ -10,16 +10,21 @@ Phases, each of which must pass or the script exits non-zero:
 2. Kernels against their plain PyTorch versions, on the card, at every
    shape a path below gives them (capacity and live rows included), and at
    B=1024 for l2 and cosine over 1M rows (capacity 1,048,576) x 128, plus
-   K1's bf16-operand instantiation: K1 at k=16, K2 (on the arena's bf16
-   mirror) at k=128, and K1's large-k route at k=2048.  Median device ms of
-   each (CUDA events, 5 runs after 2 warm-ups), beside its bound (the
-   larger of the operations over the card's peak for their type and the
-   bytes over its memory rate, counted from this case's live rows), the
-   achieved TFLOP/s and library_ms: the same product alone as one PyTorch
-   call per arena chunk (bf16 matmul with bf16 output for K2, f32 matmul
-   with TF32 off for K1), which the port never calls.  The summary line
-   reports the 1M-row cosine numbers at B=4096 (K1, K2) and B=16 (large
-   k).
+   K1's bf16-operand instantiation and K1 l2 at B=4096 (distances in the
+   hundreds, the tight case of its compensated TF32 product): K1 at k=16,
+   K2 (on the arena's bf16 mirror) at k=128, and K1's large-k route at
+   k=2048.  Median device ms of each (CUDA events, 5 runs after 2
+   warm-ups), beside its bound (the larger of the operations over the
+   card's peak for their type and the bytes over its memory rate, counted
+   from this case's live rows; K1's operations are the lesser of f32 FMA
+   and its TF32 passes on the tensor cores, and the line keeps the FMA
+   figure too), the achieved TFLOP/s and library_ms: the same product alone
+   as one PyTorch call per arena chunk (bf16 matmul with bf16 output for
+   K2, f32 matmul with TF32 off for K1), which the port never calls.  Each
+   K1 case also prints the largest error of its distances, and of its plain
+   version's, against a float64 product of the rows each returned.  The
+   summary line reports the 1M-row cosine numbers at B=4096 (K1, K2) and
+   B=16 (large k).
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -102,6 +107,7 @@ KERNEL_CASES = (
     ("fused_topk_search", "cosine", 1024, 16, True, CAP, ROWS),
     ("fused_topk_search", "cosine", 1024, 16, False, CAP, ROWS),
     ("fused_topk_search", "cosine", MAIN_B, 16, True, CAP, ROWS),       # main, restore
+    ("fused_topk_search", "l2", MAIN_B, 16, True, CAP, ROWS),
     ("fused_topk_search", "l2", 1, 16, True, CRASH_CAP, CRASH_ROWS + CRASH_UNACKED),  # crash
     ("fused_topk_search_v2", "l2", 1024, 128, None, CAP, ROWS),
     ("fused_topk_search_v2", "cosine", 1024, 128, None, CAP, ROWS),
@@ -114,9 +120,9 @@ KERNEL_CASES = (
     ("fused_topk_search_large_k", "l2", 1, BIG_K, True, WIRE_CAP, WIRE_ROWS),   # wire
     ("fused_topk_search_large_k", "cosine", BIG_B, BIG_K, True, CAP, ROWS),     # restore
 )
-# Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 FMA
-# outside them, HBM3.
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# Published peaks of one H100 SXM (dense): bf16 and TF32 tensor cores, f32
+# FMA outside them, HBM3.
+PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 LIBRARY_CHUNK_BYTES = 1 << 30  # one [B, chunk] product of library_ms at most
 # The case whose numbers the summary line reports, per kernel.
 SUMMARY = {"fused_topk_search": ("cosine", MAIN_B, CAP),
@@ -187,19 +193,58 @@ def compare(torch, name, got, want, truth, gap, rtol, atol):
     return float((dk[fin] - dr[fin]).abs().max()), int(swaps.sum())
 
 
-def bound(name, b, rows, cap, dims, k):
-    """(ms, "operations" or "bytes"): the least time the card could take
-    for a kernel's work at this case.  Operations: 2*B*rows*D products and
-    sums over the live rows, on bf16 tensor cores for K2 and f32 FMA for K1
-    (its bf16-operand instantiation included).  Bytes: each input read once
-    (the live rows of the arena, bf16 for K2 and f32 for K1, and their
-    x_sq; the whole valid mask; the f32 queries) and the [B, k] results
-    written once."""
+def bound(name, b, rows, cap, dims, k, exact=True):
+    """(ms, "operations" or "bytes", unit, f32 FMA ms): the least time the
+    card could take for a kernel's work at this case.  Operations:
+    2*B*rows*D products and sums over the live rows, on bf16 tensor cores
+    for K2; for K1 the lesser of f32 FMA and its TF32 passes on the tensor
+    cores (three for the compensated split, one with bf16 operands), named
+    in ``unit``, with the FMA figure returned beside it.  Bytes: each input
+    read once (the live rows of the arena, bf16 for K2 and f32 for K1, and
+    their x_sq; the whole valid mask; the f32 queries) and the [B, k]
+    results written once."""
     k2 = name == "fused_topk_search_v2"
-    ops_ms = 2 * b * rows * dims / (PEAK_BF16 if k2 else PEAK_F32) * 1e3
+    flops = 2 * b * rows * dims
+    fma_ms = flops / PEAK_F32 * 1e3
+    if k2:
+        ops_ms, unit = flops / PEAK_BF16 * 1e3, "bf16"
+    else:
+        passes = 3 if exact else 1
+        ops_ms, unit = min((passes * flops / PEAK_TF32 * 1e3, f"{passes} TF32 passes"),
+                           (fma_ms, "f32 FMA"))
     nbytes = rows * (dims * (2 if k2 else 4) + 4) + cap + b * dims * 4 + b * k * 8
     bytes_ms = nbytes / PEAK_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", unit, fma_ms
+    return bytes_ms, "bytes", "HBM", fma_ms
+
+
+def f64_error(torch, q, x, x_sq, got, metric, bf16):
+    """The largest error of the finite distances in ``got = (d, ids)``
+    against a float64 product of the rows named, in the kernel's own
+    scoring (operands rounded to bf16 first when ``bf16``)."""
+    from embeddinghub_tpu_torch.ops import distance as D
+
+    d, ids = got
+    q = q.float()
+    if metric == "cosine":
+        q = D.normalize(q)
+    worst = 0.0
+    for s in range(0, q.shape[0], 256):  # [256, k, D] float64 at a time
+        i = ids[s:s + 256].clamp(min=0).long()
+        rows, qc = x[i], q[s:s + 256]
+        if bf16:
+            rows, qc = D.round_bf16(rows), D.round_bf16(qc)
+        dots = torch.einsum("bkd,bd->bk", rows.double(), qc.double())
+        if metric == "l2":
+            want = torch.clamp(x_sq[i].double() - 2 * dots
+                               + (q[s:s + 256].double() ** 2).sum(1, keepdim=True), min=0)
+        else:
+            want = 1 - dots
+        fin = torch.isfinite(d[s:s + 256]) & (ids[s:s + 256] >= 0)
+        if fin.any():
+            worst = max(worst, float((d[s:s + 256].double() - want)[fin].abs().max()))
+    return worst
 
 
 def library_product(torch, name, q, x, xb):
@@ -262,22 +307,29 @@ def phase_kernels(torch, x_host, report):
                 torch, f"{name}/{metric}/B={b}/cap={cap}", got, want,
                 lambda ids: scores_of(torch, q, x, x_sq, ids, metric, bf16),
                 gap, rtol, atol)
+            f64 = ""
+            if exact is not None:
+                f64 = (f" f64_err={f64_error(torch, q, x, x_sq, got, metric, bf16):.3g}"
+                       f" plain_f64_err={f64_error(torch, q, x, x_sq, want, metric, bf16):.3g}")
             ms = device_ms(torch, lambda: kernel(q, arena, valid, x_sq, **args))
             plain_ms = device_ms(torch, lambda: plain(q, arena, valid, x_sq, **args))
             library_ms = device_ms(torch, library_product(torch, name, q, x, xb))
-            bound_ms, bound_by = bound(name, b, rows, cap, DIMS, k)
+            bound_ms, bound_by, unit, fma_ms = bound(name, b, rows, cap, DIMS, k,
+                                                     exact is not False)
             tflops = 2 * b * rows * DIMS / (ms * 1e-3) / 1e12
             print(f"[kernels] {name} {metric} B={b} cap={cap} rows={rows} k={k}"
                   f"{'' if exact is None else f' exact={exact}'}: "
-                  f"max_abs_err={err:.3g} tie_swaps={swaps} "
+                  f"max_abs_err={err:.3g}{f64} tie_swaps={swaps} "
                   f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-                  f"bound_ms={bound_ms:.3f} ({bound_by}) tflops={tflops:.1f} "
+                  f"bound_ms={bound_ms:.3f} ({bound_by}: {unit}; f32 FMA "
+                  f"{fma_ms:.3f}) tflops={tflops:.1f} "
                   f"library_ms={library_ms:.3f}", flush=True)
             entry = report.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             if SUMMARY[name] == (metric, b, cap) and exact is not False:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=library_ms)
+                             bound_by=bound_by, bound_unit=unit, fma_bound_ms=fma_ms,
+                             library_ms=library_ms)
         del x_full, xb_full, x_sq_full, x, xb, x_sq, valid
     del raw, q_all
     torch.cuda.empty_cache()
@@ -714,16 +766,17 @@ def main() -> int:
     replaces = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
                 "fused_topk_search_v2": "embeddinghub_tpu/ops/pallas_topk.py:270",
                 "fused_topk_search_large_k": "embeddinghub_tpu/ops/pallas_topk.py:124"}
-    sources = {"fused_topk_search": "embeddinghub_tpu_torch/csrc/fused_topk.cu",
+    sources = {"fused_topk_search": "embeddinghub_tpu_torch/csrc/k1_scan.cu",
                "fused_topk_search_v2": "embeddinghub_tpu_torch/csrc/k2_scan.cu",
-               "fused_topk_search_large_k": "embeddinghub_tpu_torch/csrc/fused_topk.cu"}
+               "fused_topk_search_large_k": "embeddinghub_tpu_torch/csrc/k1_scan.cu"}
     # launches: the main path's count; paths: each path's own
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": paths["main"][name],
          "paths": {path: counts.get(name, 0) for path, counts in paths.items()},
          **{key: report[name][key] for key in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
+             "fma_bound_ms", "library_ms")}}
         for name in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

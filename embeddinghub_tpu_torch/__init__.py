@@ -3,7 +3,7 @@
 The same vector database as ``embeddinghub_tpu``, for one NVIDIA H100:
 the Hub -> Space -> Version store, the wire-compatible gRPC server and the
 flat engine, with the two Pallas kernels of the JAX package rewritten as
-hand-written CUDA for Hopper (``csrc/fused_topk.cu``, ``csrc/k2_scan.cu``).  The layout mirrors
+hand-written CUDA for Hopper (``csrc/k1_scan.cu``, ``csrc/k2_scan.cu``).  The layout mirrors
 the JAX package, so each counterpart sits at the same path:
 
     ops/      distances, the fused top-k kernels and their plain twins

@@ -33,7 +33,7 @@
 //     thread issues TMA loads (cp.async.bulk.tensor) of 128-row x 64-column
 //     boxes into a ring of stages, each with a full and an empty mbarrier,
 //     and each 128-row tile's bias (x_sq or 0 where live, +inf where dead
-//     or past cap, made by k2_bias_kernel) into a ring of its own, so a
+//     or past cap, made by row_bias_kernel) into a ring of its own, so a
 //     score is one FMA.  TMA zero-fills past cap and past B.  The block's
 //     query tile is loaded once, in bf16, for the whole scan (widths past
 //     576 columns stream it with each box instead: it does not fit beside
@@ -57,13 +57,9 @@
 // entry returns 0, a CUDA error code, or NO_LIBCUDA / ENCODE_FAILED + the
 // CUresult when a tensor map cannot be made.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
 
-#include "topk_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -83,10 +79,7 @@ constexpr int STORE_TILES = 16;              // tiles of keys per TMA store
 constexpr int STORE_BYTES = 2 * 2 * WG_Q * STORE_TILES * 8;  // 2 warpgroups x 2 buffers
 constexpr int MAX_STAGES = 8;               // ring depth at most (more gained nothing)
 constexpr int MIN_RESIDENT_STAGES = 4;       // else the query tile streams
-constexpr int SMEM_LIMIT = 232448;           // 227 KB, a block's most
 constexpr int SELECT_CHUNK = 8192;           // keys one select block holds
-constexpr int NO_LIBCUDA = 9999;
-constexpr int ENCODE_FAILED = 10000;
 
 // Shared memory of the scan, from its 1024-byte aligned base: the query
 // boxes (when resident), the ring, the staged keys, the tile ring, the
@@ -105,115 +98,9 @@ struct Layout {
   }
 };
 
-// ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of the given parity has completed.  A phase that
-// has not completed after 10 s of wall time (a copy that faulted, a bug)
-// traps instead of holding the card.  The trap is a sticky error: it ends
-// the process's CUDA context, so a server whose kernel stalls that long
-// (a debugger, a card shared past all measure) must be restarted.  The
-// timeout also shapes the code: without it ptxas moves each wait's retry
-// loop out of line and then serializes every wgmma (ptxas -v: C7514), and
-// the scan is about a fifth slower (tools/probe_k2_parts.py, PERF.md).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  unsigned polls = 0;
-  uint64_t start = 0;
-  do {
-    if ((++polls & 1023u) == 0) {
-      if (start == 0)
-        start = now_ns();
-      else if (now_ns() - start > 10000000000ull)
-        __trap();
-    }
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map,
-                                       int c0, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3}], [%2];" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0)
-      : "memory");
-}
-
-// A wgmma operand of 8-row groups 1024 bytes apart, each row 128 bytes of
-// K, swizzled in 128-byte spans: the layout a 64-column TMA box with
-// CU_TENSOR_MAP_SWIZZLE_128B leaves.  Step k16 of the box starts 32 bytes
-// further along the row.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4)   // start address
-         | ((uint64_t)1 << 16)               // leading offset: unused when swizzled
-         | ((uint64_t)(1024 >> 4) << 32)     // stride offset: 8 rows
-         | ((uint64_t)1 << 62);              // 128-byte swizzle
-}
-
-// Named barriers (0 is __syncthreads): warpgroup w syncs its own 128
-// threads on FLUSH + w around a store of its keys.
+// Named barriers: warpgroup w syncs its own 128 threads on FLUSH + w around
+// a store of its keys.
 constexpr int FLUSH = 1;
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
 
 // d[64] (+)= A[64 x 16] . B[16 x 128]^T, f32 sums of bf16 products; the
 // first step of a tile (scale_d = 0) overwrites.
@@ -636,16 +523,6 @@ k2_queries_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ qb, i
   }
 }
 
-// bias [n]: what a row adds to -2 q.x (l2) or -q.x: x_sq (l2) or 0 where
-// live, +inf where dead and past cap, so a score is one FMA and a dead row
-// never wins.
-__global__ void k2_bias_kernel(const uint8_t* __restrict__ valid,
-                               const float* __restrict__ x_sq, float* __restrict__ bias,
-                               int cap, int n, int l2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) bias[i] = i < cap && valid[i] ? (l2 ? x_sq[i] : 0.f) : INF;
-}
-
 // ------------------------------------------------------------ selection
 
 // One block per (chunk, query): the k smallest of the chunk's keys (a
@@ -768,27 +645,6 @@ k2_select_kernel(const unsigned long long* __restrict__ in, int n, int stride,
 
 // ------------------------------------------------------ host: tensor maps
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda.so.1, which the process has
-// loaded already (PyTorch's CUDA context), so the library takes it from
-// there and links nothing beyond the runtime.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // The [rows, cols] u64 keys in rows of stride u64 (an even count: 16-byte
 // rows), written in boxes of 64 queries x STORE_TILES tiles.
 int encode_keys(EncodeTiled enc, CUtensorMap* m, void* base, int cols,
@@ -799,38 +655,6 @@ int encode_keys(EncodeTiled enc, CUtensorMap* m, void* base, int cols,
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT64, 2, base, dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_NONE,
-                         CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
-
-// rows x cols bf16, row-major, in boxes of 128 rows x 64 columns, 128-byte
-// swizzled; past the edges TMA fills zeros.
-int encode_rows(EncodeTiled enc, CUtensorMap* m, const void* base, int cols,
-                int rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {BOX, GROUP};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
-
-// n f32 in boxes of one tile's 128.
-int encode_bias(EncodeTiled enc, CUtensorMap* m, const float* base, int n) {
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {0};
-  const cuuint32_t box[1] = {GROUP};
-  const cuuint32_t elem[1] = {1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
-                         const_cast<float*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_NONE,
                          CU_TENSOR_MAP_L2_PROMOTION_NONE,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -894,15 +718,16 @@ int ehtorch_k2(const float* q, const uint8_t* valid, const float* x_sq,
   if (enc == nullptr) return NO_LIBCUDA;
   const int n_tiles = (cap + GROUP - 1) / GROUP;
   CUtensorMap xmap, qmap, bmap, kmap;
-  int err = encode_rows(enc, &xmap, xb, Dp, cap);
-  if (!err) err = encode_rows(enc, &qmap, qb, Dp, B);
-  if (!err) err = encode_bias(enc, &bmap, bias, n_tiles * GROUP);
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int err = encode_rows(enc, &xmap, bf16, xb, Dp, cap, (size_t)Dp * 2, BOX, GROUP);
+  if (!err) err = encode_rows(enc, &qmap, bf16, qb, Dp, B, (size_t)Dp * 2, BOX, GROUP);
+  if (!err) err = encode_bias(enc, &bmap, bias, n_tiles * GROUP, GROUP);
   if (!err) err = encode_keys(enc, &kmap, keys, n_tiles, stride, B);
   if (err) return err;
 
   k2_queries_kernel<<<B, MERGE_THREADS, 0, s>>>(
       q, static_cast<__nv_bfloat16*>(qb), D, Dp, cosine);
-  k2_bias_kernel<<<(n_tiles * GROUP + 255) / 256, 256, 0, s>>>(
+  row_bias_kernel<<<(n_tiles * GROUP + 255) / 256, 256, 0, s>>>(
       valid, x_sq, bias, cap, n_tiles * GROUP, l2);
   cudaError_t e = opt_in_shared_memory();
   if (e != cudaSuccess) return (int)e;

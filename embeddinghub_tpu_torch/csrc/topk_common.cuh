@@ -1,4 +1,4 @@
-// Helpers shared by the top-k kernels of fused_topk.cu (K1) and
+// Helpers shared by the top-k kernels of k1_scan.cu (K1) and
 // k2_scan.cu (K2): the (score, id) key, the epilogue of one result slot
 // and the query norm the l2 epilogue adds.
 #pragma once

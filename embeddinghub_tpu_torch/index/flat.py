@@ -7,7 +7,8 @@ Storage model, as in the reference:
     arena of the raw vectors (``get`` returns exactly what was set) and a
     ``[cap]`` liveness mask;
   * the device side is a lazily synced mirror on ``self.device``: rows
-    preprocessed for the metric (cosine -> unit rows), their squared norms
+    preprocessed for the metric (cosine -> unit rows; in rows padded to a
+    multiple of 4 floats, ``fused_topk.arena_f32``), their squared norms
     and the mask, plus ``_dxb``, the preprocessed rows rounded to bf16 in
     ``[cap, Dp]`` (``fused_topk.arena_bf16``, the padding columns zero),
     which K2 scans; the f32 rows serve the exact kernel and the rerank.
@@ -178,7 +179,9 @@ class FlatIndex(Index):
         # The host arena keeps raw vectors; metric preprocessing happens
         # here, on the way to the device.
         if self._needs_full_sync or self._dx is None:
-            self._dx = dist_ops.preprocess_vectors(self._upload(self._hx), self.metric)
+            # rows a multiple of 16 bytes apart, as K1's TMA loads need
+            self._dx = fused_topk.arena_f32(
+                dist_ops.preprocess_vectors(self._upload(self._hx), self.metric))
             self._dxb = fused_topk.arena_bf16(self._dx)
             self._dx_sq = dist_ops.sqnorms(self._dx)
             self._dvalid = self._upload(self._hvalid)

@@ -32,12 +32,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes; every pointer and the stream are c_void_p so ctypes
 # does not cut them to 32 bits.
 _SIGNATURES = {
-    "ehtorch_fused_topk": [_P] * 8 + [_I] * 9 + [_P],
+    "ehtorch_k1_tile": [_I] * 4,
+    "ehtorch_fused_topk": [_P] * 9 + [_I] * 11 + [_P],
     "ehtorch_k2": [_P] * 10 + [_I] * 9 + [_P],
-    "ehtorch_radix_store": [_P] * 5 + [_I] * 7 + [_P],
-    "ehtorch_radix_pass": [_P] * 6 + [_I] * 5 + [_P],
-    "ehtorch_radix_collect": [_P] * 8 + [_I] * 7 + [_P],
+    "ehtorch_large_k_state_bytes": [_I],
+    "ehtorch_large_k": [_P] * 10 + [_I] * 13 + [_P],
 }
+_RESTYPES = {"ehtorch_large_k_state_bytes": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -102,5 +103,5 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib

@@ -3,12 +3,19 @@
 
 Two kernels, both hand-written CUDA for sm_90a:
 
-  * K1, :func:`fused_topk_search` -- exact k-NN, ``csrc/fused_topk.cu``.
-    The port's exact engine: ``chunked_topk_search`` on CUDA is K1.  Its
-    running lists serve k up to ``MAX_K_EXACT``; :func:`exact_topk_large_k`
-    is its route for any larger k up to the capacity (the same product into
-    a score buffer, radix select, then a bitonic sort), as the Pallas K1 has
-    no k limit.
+  * K1, :func:`fused_topk_search` -- exact k-NN, ``csrc/k1_scan.cu``.
+    The port's exact engine: ``chunked_topk_search`` on CUDA is K1.  The
+    f32 arena streams in by TMA in tiles of 128 rows; the product is a
+    compensated TF32 one on the tensor cores (each operand split into a
+    big and a small TF32 part, three wgmma passes with f32 sums: f32-grade
+    results; ``exact=False`` rounds the operands to bf16 and takes one
+    pass), against a tile of queries as narrow as the batch (8 to 128).
+    Scores that beat a query's k-th best go through small queues in shared
+    memory into its running list.  The lists serve k up to ``MAX_K_EXACT``;
+    :func:`exact_topk_large_k` is the route for any larger k up to the
+    capacity (the same product into a score buffer, radix select, then a
+    bitonic sort, with no readback between its launches), as the Pallas K1
+    has no k limit.
   * K2, :func:`fused_topk_search_v2` -- approximate candidates, one bf16
     winner per group of 128 consecutive rows, then the k best winners,
     ``csrc/k2_scan.cu``: TMA loads of a bf16 mirror of the arena and wgmma
@@ -25,7 +32,8 @@ The public functions keep the JAX signatures and their ``ValueError``
 alignment contract, so tests compare like with like; ``chunk`` and
 ``block_b`` are checked, not used, because the CUDA kernels choose their own
 tiling.  The index calls :func:`exact_topk` on its row-major ``[cap, D]``
-f32 arena and :func:`approx_candidates` on the bf16 mirror of it
+f32 arena (:func:`arena_f32`: rows a multiple of 16 bytes apart, which TMA
+asks for) and :func:`approx_candidates` on the bf16 mirror of it
 (:func:`arena_bf16`); both take any ``B`` and mask the ragged edges
 themselves.
 
@@ -37,6 +45,7 @@ device launch the kernel, or raise.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -50,12 +59,16 @@ MAX_K_EXACT = 1024     # K1's running lists; past it, its large-k route
 MAX_K_APPROX = 256     # K2; the main path asks for k * 8 = 128
 MIRROR_BOX = 64        # K2's TMA box width in bf16 columns (k2_scan.cu)
 _MERGE_SLOTS = 16384   # K1: splits * k entries sorted per query by its merge
-_BQ, _BN = 64, 128     # K1's scan tile: queries, rows (fused_topk.cu)
-# K1's scan blocks to aim for, per SM.  Measured on an H100 over
-# B = 1..4096 (k=16, 1M rows), 2 was the best of 1, 2, 4 and 8, or within
-# 3 % of it, at every B; tools/sweep_splits.py reruns the sweep, merge sizes
-# included.  More splits mean more list fills and longer merges.
-_BLOCKS_PER_SM = 2
+_BN = 128              # K1's scan tile: arena rows (k1_scan.cu TILE)
+# K1's query tile is as narrow as the batch: the kernel library picks 8,
+# 16, 32, 64 or 128 queries a block (k1_scan.cu pick_nq; narrower for wide
+# rows, whose two query tiles must leave room for the ring).
+# K1's scan blocks to aim for, per SM (one block fits an SM, so these are
+# waves): slices of the arena fill the card at any B.  More splits mean
+# more list fills and longer merges: on an H100 one wave was the best of 1,
+# 2, 4 and 8 at every B from 1 to 4096 (k=16, 1M x 128).
+# tools/sweep_splits.py sweeps it with the merge size.
+_BLOCKS_PER_SM = 1
 # K2: queries per scan block (two wgmma warpgroups of 64) and the waves of
 # scan blocks to aim for, per SM (one block fits an SM); its slices need no
 # merge, so more only cost block set-up.  8 waves are 1056 blocks, a whole
@@ -119,6 +132,19 @@ def fused_topk_search_v2(q, xt, valid, x_sq, *, k=16, metric="l2",
 def mirror_dims(dims: int) -> int:
     """The bf16 mirror's width: ``dims`` rounded up to whole TMA boxes."""
     return -(-dims // MIRROR_BOX) * MIRROR_BOX
+
+
+def arena_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x [n, D]`` f32 as K1 reads it on the card: rows a multiple of 4
+    floats (16 bytes) apart, TMA's rule for a row stride.  ``x`` itself when
+    it already is; else a ``[n, D]`` view of a new ``[n, ceil4(D)]`` buffer
+    (the padding is never read: TMA fills columns past ``D`` with zeros)."""
+    n, dims = x.shape
+    if x.stride(1) == 1 and x.stride(0) % 4 == 0 and x.stride(0) >= dims:
+        return x
+    out = torch.empty((n, -(-dims // 4) * 4), dtype=torch.float32, device=x.device)
+    out[:, :dims] = x
+    return out[:, :dims]
 
 
 def arena_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -188,9 +214,11 @@ def _epilogue(best_s, best_i, q, metric):
 
 
 def _checked(name, q, x, valid, x_sq, metric, mirror=False):
-    """The launch's inputs on one CUDA device and contiguous; the queries
-    as f32, contiguous.  ``x`` is the f32 arena, or with ``mirror`` its
-    bf16 mirror."""
+    """The launch's inputs on one CUDA device and contiguous (the f32
+    arena: unit column stride, rows a multiple of 4 floats apart and 16-byte
+    aligned, as :func:`arena_f32` leaves it); the queries as f32,
+    contiguous.  ``x`` is the f32 arena, or with ``mirror`` its bf16
+    mirror."""
     if metric not in D.METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     dev = x.device
@@ -208,22 +236,31 @@ def _checked(name, q, x, valid, x_sq, metric, mirror=False):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {what} must be {dtype} {shape} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
+        if t is x and not mirror:
+            if (t.stride(1) != 1 or t.stride(0) % 4 or t.stride(0) < dims
+                    or t.data_ptr() % 16):
+                raise ValueError(
+                    f"{name}: x must have unit column stride and 16-byte aligned "
+                    f"rows a multiple of 4 floats apart (arena_f32), got strides "
+                    f"{t.stride()}")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     if q.device != dev:
         raise ValueError(f"{name}: queries on {q.device}, arena on {dev}")
     return q.to(torch.float32).contiguous()
 
 
+@functools.cache
 def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _splits(b, cap, dev, most):
+def _splits(b, nq, cap, dev, most):
     """K1's scan blocks along the arena: ``(splits, tiles per split)``."""
     n_tiles = -(-cap // _BN)
-    q_tiles = -(-b // _BQ)
-    splits = max(1, min(-(-_BLOCKS_PER_SM * _sms(dev) // q_tiles), n_tiles, most))
+    q_tiles = -(-b // nq)
+    # rounded down: the blocks fill whole waves and leave no tail
+    splits = max(1, min(_BLOCKS_PER_SM * _sms(dev) // q_tiles, n_tiles, most))
     per_split = -(-n_tiles // splits)
     return -(-n_tiles // per_split), per_split
 
@@ -238,20 +275,22 @@ def _launch(q, x, valid, x_sq, k, metric, exact):
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
 
-    splits, per_split = _splits(b, cap, dev, _MERGE_SLOTS // k)
+    lib = _build.library()
+    nq = lib.ehtorch_k1_tile(b, dims, int(exact), 0)  # queries a scan block
+    splits, per_split = _splits(b, nq, cap, dev, _MERGE_SLOTS // k)
     slots = 1 << max(0, (splits * k - 1).bit_length())
 
+    bias = torch.empty((-(-cap // _BN) * _BN,), dtype=torch.float32, device=dev)
     pd = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
     pi = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
     od = torch.empty((b, k), dtype=torch.float32, device=dev)
     oi = torch.empty((b, k), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    ptrs = [t.data_ptr() for t in (q, x, valid, x_sq, pd, pi, od, oi)]
+    ptrs = [t.data_ptr() for t in (q, x, valid, x_sq, bias, pd, pi, od, oi)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ehtorch_fused_topk(
-            *ptrs, b, cap, dims, k, int(metric == "l2"), int(exact), splits,
-            per_split, slots, ctypes.c_void_p(stream))
+            *ptrs, b, cap, dims, x.stride(0), k, int(metric == "l2"), int(exact),
+            nq, splits, per_split, slots, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     _count(name)
@@ -305,11 +344,7 @@ def _launch_k2(q, xb, valid, x_sq, k, metric):
     return od, oi
 
 
-# Bits of the radix digits of a (score, row) key, high to low: the score's
-# four, then the row's (fused_topk.cu, "K1 past k = 1024").
-_SCORE_SHIFTS = (56, 48, 40, 32)
-_ROW_SHIFTS = (24, 16, 8, 0)
-_RADIX_BLOCKS_PER_SM = 8  # 128-thread blocks of the radix passes
+_RADIX_BLOCKS_PER_SM = 16  # 128-thread blocks of the radix passes
 
 
 def _launch_large_k(q, x, valid, x_sq, k, metric, exact):
@@ -327,51 +362,34 @@ def _launch_large_k(q, x, valid, x_sq, k, metric, exact):
     group = max(1, min(b, SCORE_BUFFER_BYTES // (4 * row_len)))
     slots = 1 << (k - 1).bit_length()
     sms = _sms(dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    i64 = dict(dtype=torch.int64, device=dev)
-    scores = torch.empty((group, row_len), dtype=torch.float32, device=dev)
-    keys = torch.empty((group, slots), **i64)
-    hist = torch.zeros((group, 256), **i32)
-    prefix, bound, need, taken, count = (torch.empty(group, **t)
-                                         for t in (i64, i64, i32, i32, i32))
     lib = _build.library()
+    bias = torch.empty((row_len,), dtype=torch.float32, device=dev)
+    scores = torch.empty((group, row_len), dtype=torch.float32, device=dev)
+    keys = torch.empty((group, slots), dtype=torch.int64, device=dev)
+    state = torch.empty((lib.ehtorch_large_k_state_bytes(group),), dtype=torch.uint8,
+                        device=dev)
     l2, row_bits = int(metric == "l2"), (cap - 1).bit_length()
 
-    def check(err):
-        if err != 0:
-            raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
+    # Every launch of a group goes out in one call: the product into the
+    # score buffer, the radix digits, the collect, the sort and the epilogue
+    # (k1_scan.cu ehtorch_large_k).  Nothing comes back to the host between
+    # them.
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         for g0 in range(0, b, group):
             g = min(group, b - g0)
-            splits, per_split = _splits(g, cap, dev, cap)
+            nq = lib.ehtorch_k1_tile(g, dims, int(exact), 1)
+            splits, per_split = _splits(g, nq, cap, dev, cap)
             blocks_x = max(1, min(row_len // _BN // 4,
                                   -(-_RADIX_BLOCKS_PER_SM * sms // g)))
-            for t, v in ((prefix, 0), (bound, 0), (need, k), (count, 0), (keys, -1)):
-                t.fill_(v)  # keys: all ones, padding that sorts last
-            check(lib.ehtorch_radix_store(
+            err = lib.ehtorch_large_k(
                 q[g0:].data_ptr(), x.data_ptr(), valid.data_ptr(), x_sq.data_ptr(),
-                scores.data_ptr(), g, cap, dims, l2, int(exact), splits, per_split,
-                stream))
-
-            def digit(shift):
-                check(lib.ehtorch_radix_pass(
-                    *(t.data_ptr() for t in (scores, hist, prefix, bound, need, taken)),
-                    g, row_len, shift, int(shift == _SCORE_SHIFTS[0]), blocks_x,
-                    stream))
-
-            for shift in _SCORE_SHIFTS:
-                digit(shift)
-            if bool(need[:g].any()):  # a k-th score ties: the rows decide
-                for shift in _ROW_SHIFTS:
-                    if shift < row_bits:
-                        digit(shift)
-            check(lib.ehtorch_radix_collect(
-                scores.data_ptr(), q[g0:].data_ptr(),
-                *(t.data_ptr() for t in (bound, taken, count, keys)),
-                od[g0:].data_ptr(), oi[g0:].data_ptr(),
-                g, row_len, dims, k, l2, slots, blocks_x, stream))
+                bias.data_ptr(), scores.data_ptr(), state.data_ptr(), keys.data_ptr(),
+                od[g0:].data_ptr(), oi[g0:].data_ptr(), g, cap, dims, x.stride(0), k,
+                l2, int(exact), nq, splits, per_split, slots, row_bits, blocks_x,
+                stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     _count(name)
     return od, oi
 

@@ -5,7 +5,8 @@ On CUDA the two searches run on the hand-written kernels of
 :mod:`embeddinghub_tpu_torch.ops.fused_topk`:
 
   * :func:`exact_search` (and :func:`chunked_topk_search`, the reference's
-    name and contract for it) is K1 (exact, f32 FMA): its running lists
+    name and contract for it) is K1 (exact: a compensated TF32 product on
+    the tensor cores, f32-grade): its running lists
     for ``k`` up to ``MAX_K_EXACT``, its large-k route above that, up to
     the arena's capacity;
   * :func:`approx_oversample_search` is K2 for ``k * oversample`` bf16

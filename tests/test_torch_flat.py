@@ -169,11 +169,14 @@ def test_search_past_k1_limit_matches_jax(metric, mode):
 
 
 def _assert_mirror(idx):
-    """``_dxb`` is ``_dx`` rounded to bf16, the padding columns zero."""
+    """``_dxb`` is ``_dx`` rounded to bf16, the padding columns zero; the
+    rows of ``_dx`` lie a multiple of 16 bytes apart (K1's TMA loads)."""
     from embeddinghub_tpu_torch.ops import fused_topk
 
     idx._sync()
     dims = idx.dims
+    assert idx._dx.shape == (idx.capacity, dims)
+    assert idx._dx.stride(1) == 1 and idx._dx.stride(0) % 4 == 0
     assert idx._dxb.dtype == torch.bfloat16
     assert idx._dxb.shape == (idx.capacity, fused_topk.mirror_dims(dims))
     assert torch.equal(idx._dxb[:, :dims], idx._dx.to(torch.bfloat16))

@@ -187,6 +187,119 @@ def test_large_k_plain_matches_pallas(metric):
         F.exact_topk_large_k(*_t(q, x, valid, xsq), k=513, metric=metric)
 
 
+# ------------------------------------------- the compensated TF32 product
+
+
+def split_tf32(v):
+    """``(big, small)`` of f32 ``v`` as K1's kernel splits it: ``big`` is
+    ``v`` rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero: ``cvt.rna.tf32.f32``) and ``small`` the rest rounded the same way,
+    both f32 with 13 zero low bits.  ``big + small`` keeps 22 bits of ``v``."""
+    def rna(a):
+        return ((a.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    big = rna(v.to(torch.float32))
+    return big, rna(v - big)
+
+
+def tf32x3_product(q, x):
+    """``q @ x.T`` as K1's kernel takes it, emulated in f32: each operand
+    split by :func:`split_tf32`, ``big.small + small.big + big.big`` with
+    the small terms first.  Every factor is exact in TF32, so this shows
+    what the split drops (not how the tensor cores sum)."""
+    qb, qs = split_tf32(q)
+    xb, xs = split_tf32(x)
+    return (qb @ xs.T + qs @ xb.T) + qb @ xb.T
+
+
+def test_split_tf32_keeps_22_bits():
+    """big + small is within 2^-21 |v| of v, and both parts have 13 zero
+    low mantissa bits: normal, tiny, negative and zero values."""
+    rng = np.random.default_rng(20)
+    v = np.concatenate([
+        rng.standard_normal(4096), rng.standard_normal(1024) * 1e-30,
+        -np.abs(rng.standard_normal(1024)) * 1e4, rng.standard_normal(1024) * 1e20,
+        [0.0, -0.0, 1.0, -1.0, 1.0 + 2.0 ** -11, 3.0 - 2.0 ** -22]]).astype(np.float32)
+    big, small = split_tf32(torch.from_numpy(v))
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (big.double() + small.double() - torch.from_numpy(v).double()).abs()
+    assert bool((err <= 2.0 ** -21 * torch.from_numpy(np.abs(v)).double()).all())
+    assert bool((big[v == 0] == 0).all() and (small[v == 0] == 0).all())
+    # to nearest: big is within half a TF32 step of v
+    assert bool(((big.double() - torch.from_numpy(v).double()).abs()
+                 <= 2.0 ** -11 * torch.from_numpy(np.abs(v)).double()).all())
+
+
+@pytest.mark.parametrize("dims", [7, 128, 600])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_tf32x3_product_is_f32_grade(dims, metric):
+    """The three-pass product against a float64 product on N(0, 1) data
+    (unit rows and queries for cosine): at most 4x the error of the f32
+    ``torch.matmul``, and its scores inside rtol 1e-5, atol 1e-4 of the f32
+    ones; one TF32 pass alone is far outside."""
+    q, x, _, xsq = _t(*_arena(21, 20_000, dims, 256, metric))
+    if metric == "cosine":
+        q = D.normalize(q)
+    truth = q.double() @ x.double().T
+    f32 = q @ x.T
+    three = tf32x3_product(q, x)
+    err_f32 = float((f32.double() - truth).abs().max())
+    err_three = float((three.double() - truth).abs().max())
+    assert err_three <= 4 * err_f32, (err_three, err_f32)
+    one = split_tf32(q)[0] @ split_tf32(x)[0].T
+    assert float((one.double() - truth).abs().max()) > 20 * err_three
+
+    def scores(dots):
+        return xsq[None, :] - 2.0 * dots if metric == "l2" else -dots
+    np.testing.assert_allclose(scores(three).numpy(), scores(f32).numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_tf32_one_pass_is_exact_for_bf16_operands():
+    """A bf16 value is exact in TF32: its small part is zero, so
+    ``exact=False`` is one pass, equal to the f32 product of the rounded
+    operands up to summation order."""
+    q, x, _, _ = _t(*_arena(22, 4096, 128, 64, "l2"))
+    qr, xr = D.round_bf16(q), D.round_bf16(x)
+    (qb, qs), (xb, xs) = split_tf32(qr), split_tf32(xr)
+    assert torch.equal(qb, qr) and torch.equal(xb, xr)
+    assert not qs.any() and not xs.any()
+    np.testing.assert_allclose((qb @ xb.T).numpy(), (qr @ xr.T).numpy(), rtol=1e-6,
+                               atol=1e-6 * float((qr @ xr.T).abs().max()))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_k1_through_tf32x3_matches_pallas(metric):
+    """K1 with the emulated three-pass product names the rows the Pallas K1
+    (HIGHEST) names, on the parity data of test_k1_plain_matches_pallas."""
+    q, x, valid, xsq = _arena(0, 512, 32, 16, metric)
+    jd, ji = jp.fused_topk_search(
+        jnp.asarray(q), jnp.asarray(x), jnp.asarray(valid), jnp.asarray(xsq),
+        k=8, metric=metric, chunk=128, block_b=16, interpret=True, exact=True)
+    tq, tx, tvalid, txsq = _t(q, x, valid, xsq)
+    tq = F._prep_query(tq, metric)
+    dots = tf32x3_product(tq, tx)
+    scores = txsq[None, :] - 2.0 * dots if metric == "l2" else -dots
+    best_s, best_i = torch.topk(torch.where(tvalid[None, :], scores, F.INF), 8, dim=1,
+                                largest=False)
+    td, ti = F._epilogue(best_s, best_i, tq, metric)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
+    assert_ids_equal_off_ties(ti.numpy(), np.asarray(ji), np.asarray(jd), 1e-5)
+
+
+def test_arena_f32_pads_rows_to_16_bytes():
+    """K1's arena on the card: rows a multiple of 4 floats apart; an arena
+    that already is comes back as it is, any other as a view of a padded
+    buffer with the same values."""
+    rng = np.random.default_rng(23)
+    for dims, stride in ((7, 8), (150, 152), (128, 128), (100, 100)):
+        x = torch.from_numpy(rng.standard_normal((9, dims)).astype(np.float32))
+        a = F.arena_f32(x)
+        assert a.shape == x.shape and a.stride() == (stride, 1) and torch.equal(a, x)
+        assert (a is x) == (dims % 4 == 0)
+        assert F.arena_f32(a) is a
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -197,25 +310,185 @@ def _cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
-@pytest.mark.parametrize("k", [1, 16, 1024])
-@pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("b", [1, 300])
-def test_k1_kernel_matches_plain(metric, k, exact, b):
-    """Ragged shapes (cap not a multiple of 128, D not of 32, B not of 64).
-    ``exact=False`` runs the bf16-operand instantiation: 1e-3, as K2."""
-    dev = _cuda()
-    q, x, valid, xsq = (t.to(dev) for t in _t(*_arena(8, 50_001, 100, b, metric)))
-    before = F.LAUNCHES["fused_topk_search"]
-    d, i = F.exact_topk(q, x, valid, xsq, k=k, metric=metric, exact=exact)
-    assert F.LAUNCHES["fused_topk_search"] == before + 1
-    rd, ri = F.fused_topk_search_reference(q, x, valid, xsq, k=k, metric=metric,
-                                           exact=exact)
+_CARD_ARENA = {}
+
+
+def _card_arena(cap, dims, metric):
+    """The card's copy of a seeded arena with 4096 queries, the last one
+    made kept (the grids below vary the arena slowest): f32 rows as
+    ``arena_f32`` leaves them."""
+    key = (cap, dims, metric)
+    if key not in _CARD_ARENA:
+        _CARD_ARENA.clear()
+        q, x, valid, xsq = (t.to("cuda") for t in _t(*_arena(8, cap, dims, 4096, metric)))
+        _CARD_ARENA[key] = (q, F.arena_f32(x), valid, xsq)
+    return _CARD_ARENA[key]
+
+
+def _k1_scores(q, x, xsq, qi, rows, metric, bf16):
+    """The plain version's distance of row ``rows[j]`` from query
+    ``qi[j]``."""
+    q = F._prep_query(q, metric)
+    xr, qc = x[rows], q[qi]
+    if bf16:
+        qc, xr = D.round_bf16(qc), D.round_bf16(xr)
+    dots = (xr * qc).sum(1)
+    if metric == "l2":
+        return torch.clamp(xsq[rows] - 2 * dots + D.sqnorms(q)[qi], min=0)
+    return 1 - dots
+
+
+# What f32 resolves: an l2 distance d is a sum of three f32 terms of about
+# its size (the row's and the query's squared norm and the product), each
+# rounded to a step of 2^-23 d or half of it, and a product q.x is a sum of
+# terms that add up to |q||x| in size, far above an ip distance itself at
+# D = 600.  The kernel and the plain version take these roundings at
+# different low bits.  Two rows closer than a few steps of the larger of
+# the two sizes are a tie to f32 however the product is summed.
+_F32_STEPS = 4 * 2.0 ** -23
+
+
+def _k1_against_plain(route, q, x, valid, xsq, k, metric, exact, strict=False):
+    """K1 (or its large-k route) on the card against its plain version:
+    f32 operands 1e-5 of the distance + 1e-4, bf16 operands 1e-3, as K2.
+    Ids: where they differ, the kernel's row must score (in the plain
+    version's arithmetic) within the tie gap (1e-4, bf16 operands 1e-3) of
+    the plain version's row at that position, plus ``_F32_STEPS`` of the
+    distance or of |q||x|.  ``strict``: moreover ids equal wherever the
+    plain version's distance is not within the tie gap of a neighbour's,
+    with no term for any size."""
+    name, fn, plain = {
+        "k1": ("fused_topk_search", F.exact_topk, F.fused_topk_search_reference),
+        "large_k": ("fused_topk_search_large_k", F.exact_topk_large_k,
+                    F.fused_topk_search_large_k_reference)}[route]
+    before = F.LAUNCHES[name]
+    d, i = fn(q, x, valid, xsq, k=k, metric=metric, exact=exact)
+    assert F.LAUNCHES[name] == before + 1
+    rd, ri = plain(q, x, valid, xsq, k=k, metric=metric, exact=exact)
     torch.cuda.synchronize()
     rtol, atol = (1e-5, 1e-4) if exact else (1e-3, 1e-3)
-    np.testing.assert_allclose(d.cpu().numpy(), rd.cpu().numpy(), rtol=rtol, atol=atol)
-    assert_ids_equal_off_ties(i.cpu().numpy(), ri.cpu().numpy(), rd.cpu().numpy(), atol)
+    assert torch.equal(torch.isfinite(d), torch.isfinite(rd))
+    swaps = i != ri
+    if swaps.any():
+        qi = swaps.nonzero()[:, 0]
+        want = rd[swaps]
+        rows = i[swaps].long()
+        got = _k1_scores(q, x, xsq, qi, rows, metric, not exact)
+        size = torch.maximum(want.abs(),
+                             F._prep_query(q, metric).norm(dim=1)[qi] * xsq[rows].sqrt())
+        off = (got - want).abs() - _F32_STEPS * size
+        assert bool((off <= atol).all()), (
+            f"{int(swaps.sum())} ids differ, worst gap {float(off.max())}")
+    d, i, rd, ri = (t.cpu().numpy() for t in (d, i, rd, ri))
+    np.testing.assert_allclose(d, rd, rtol=rtol, atol=atol)
+    if strict:
+        assert_ids_equal_off_ties(i, ri, rd, atol)
+    assert valid.cpu().numpy()[i[i >= 0]].all()
+    return d, i
+
+
+def _strict(dims, cap, b):
+    """The shapes held to ids equal off near-ties of the tie gap alone."""
+    return dims == 100 and cap == 50_001 and b in (1, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 9, 63, 300, 4096])
+@pytest.mark.parametrize("k", [1, 16, 1024])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("cap", [50_001, 131_072])
+@pytest.mark.parametrize("dims", [7, 100, 128, 150, 300, 600])
+def test_k1_kernel_matches_plain(metric, k, exact, b, cap, dims):
+    """Ragged and whole shapes: cap not a multiple of 128, D not of 32 nor
+    of 4 (padded rows), every query-tile width (B = 1 .. 4096) and rows wide
+    enough to narrow it; ``exact=False`` runs the one-pass bf16-operand
+    instantiation."""
+    _cuda()
+    q, x, valid, xsq = _card_arena(cap, dims, metric)
+    _k1_against_plain("k1", q[:b], x, valid, xsq, k, metric, exact,
+                      strict=_strict(dims, cap, b))
+
+
+@pytest.mark.cuda
+def test_k1_kernel_dead_tiles_and_few_live_rows():
+    """Whole 128-row tiles of dead rows never give a candidate, and k above
+    the live rows leaves the tail empty."""
+    dev = _cuda()
+    q, x, valid, xsq = _arena(13, 50_001, 128, 70, "cosine")
+    dead = (np.arange(len(valid)) // 128) % 3 == 0
+    valid[dead] = False
+    args = [t.to(dev) for t in _t(q, x, valid, xsq)]
+    d, i = _k1_against_plain("k1", *args, 64, "cosine", True)
+    assert (i >= 0).all() and not dead[i].any()
+    valid[:] = False
+    valid[[5, 700, 40_000]] = True
+    args = [t.to(dev) for t in _t(q, x, valid, xsq)]
+    d, i = _k1_against_plain("k1", *args, 16, "cosine", True)
+    assert (np.sort(i[:, :3], axis=1) == [5, 700, 40_000]).all()
+    assert (i[:, 3:] == -1).all() and np.isinf(d[:, 3:]).all()
+    valid[:] = False
+    args = [t.to(dev) for t in _t(q, x, valid, xsq)]
+    d, i = _k1_against_plain("k1", *args, 16, "cosine", True)
+    assert (i == -1).all() and np.isinf(d).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,k", [("k1", 16), ("large_k", 1100)])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("dims", [2_400, 3_072, 4_096, 5_000])
+def test_k1_kernel_widest_rows(dims, exact, route, k):
+    """Rows too wide for the scan block's shared memory even at 8 queries a
+    block are walked in chunks: any width is served.  2,400 still fits whole
+    with f32 operands, 3,072 and 4,096 take two chunks and 5,000 (not a
+    multiple of 32, an odd count of boxes) three; with bf16 operands all
+    fit whole but the large-k route's 5,000, which takes two."""
+    dev = _cuda()
+    q, x, valid, xsq = (t.to(dev) for t in _t(*_arena(15, 3_000, dims, 20, "l2")))
+    _k1_against_plain(route, q, x, valid, xsq, k, "l2", exact)
+
+
+@pytest.mark.cuda
+def test_k1_kernel_asks_for_padded_rows():
+    """An arena whose rows are not a multiple of 16 bytes apart raises on
+    the card, through the index entry and the public one alike: no entry
+    makes a second copy of the arena."""
+    dev = _cuda()
+    q, x, valid, xsq = (t.to(dev) for t in _t(*_arena(16, 2_048, 150, 16, "l2")))
+    with pytest.raises(ValueError, match="arena_f32"):
+        F.exact_topk(q, x, valid, xsq, k=8, metric="l2")
+    with pytest.raises(ValueError, match="arena_f32"):
+        F.fused_topk_search(q, x, valid, xsq, k=8, metric="l2", chunk=2_048, block_b=16)
+    d, i = F.fused_topk_search(q, F.arena_f32(x), valid, xsq, k=8, metric="l2",
+                               chunk=2_048, block_b=16)
+    rd, ri = F.fused_topk_search_reference(q, x, valid, xsq, k=8, metric="l2")
+    np.testing.assert_allclose(d.cpu().numpy(), rd.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    assert_ids_equal_off_ties(i.cpu().numpy(), ri.cpu().numpy(), rd.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 6, 16])
+def test_k1_kernel_breaks_score_ties_by_row(k):
+    """64 rows copied eight times over: equal scores across four tiles and
+    across both halves of each, and the lower row always wins."""
+    dev = _cuda()
+    q, x, valid, xsq = _arena(14, 512, 24, 40, "l2")
+    valid[:] = True
+    for c in range(1, 8):
+        x[64 * c:64 * (c + 1)] = x[:64]
+    xsq = (x * x).sum(1)
+    args = [t.to(dev) for t in _t(q, x, valid, xsq)]
+    d, i = F.exact_topk(*args, k=k, metric="l2")
+    rd, ri = F.fused_topk_search_reference(*args, k=k, metric="l2")
+    d, i = d.cpu().numpy(), i.cpu().numpy()
+    np.testing.assert_allclose(d, rd.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    # copies of one row score bit for bit the same: the order is (score, row)
+    for row_d, row_i in zip(d, i):
+        np.testing.assert_array_equal(np.lexsort((row_i, row_d)), np.arange(k))
+        assert len(set(row_i)) == k
+    # the copies of the nearest row r < 64 are r, r + 64, r + 128, .. in order
+    near = i[:, :min(k, 8)]
+    assert (near == near[:, :1] + 64 * np.arange(near.shape[1])).all()
 
 
 def _k2_scores(q, xb, xsq, ids, metric):
@@ -297,25 +570,45 @@ def test_k2_kernel_dead_groups():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
-@pytest.mark.parametrize("k", [1025, 4096, 50_001])
+@pytest.mark.parametrize("b", [1, 9, 63, 300, 4096])
+@pytest.mark.parametrize("k", [1025, 4096])
 @pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("cap", [50_001, 131_072])
+@pytest.mark.parametrize("dims", [7, 100, 128, 150, 300, 600])
+def test_large_k_kernel_matches_plain(metric, k, exact, b, cap, dims):
+    """K1's large-k route on K1's grid of shapes."""
+    _cuda()
+    q, x, valid, xsq = _card_arena(cap, dims, metric)
+    _k1_against_plain("large_k", q[:b], x, valid, xsq, k, metric, exact,
+                      strict=_strict(dims, cap, b))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 300])
-def test_large_k_kernel_matches_plain(metric, k, exact, b):
-    """K1's large-k route on ragged shapes, up to k = cap (past the live
-    rows: the tail is empty)."""
-    dev = _cuda()
-    q, x, valid, xsq = (t.to(dev) for t in _t(*_arena(8, 50_001, 100, b, metric)))
-    before = F.LAUNCHES["fused_topk_search_large_k"]
-    d, i = F.exact_topk_large_k(q, x, valid, xsq, k=k, metric=metric, exact=exact)
-    assert F.LAUNCHES["fused_topk_search_large_k"] == before + 1
-    rd, ri = F.fused_topk_search_large_k_reference(q, x, valid, xsq, k=k, metric=metric,
-                                                   exact=exact)
-    torch.cuda.synchronize()
-    rtol, atol = (1e-5, 1e-4) if exact else (1e-3, 1e-3)
-    rd, ri = rd.cpu().numpy(), ri.cpu().numpy()
-    np.testing.assert_allclose(d.cpu().numpy(), rd, rtol=rtol, atol=atol)
-    assert_ids_equal_off_ties(i.cpu().numpy(), ri, rd, atol)
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_large_k_kernel_k_up_to_capacity(metric, exact, b):
+    """k = cap, past the live rows: the tail is empty."""
+    _cuda()
+    q, x, valid, xsq = _card_arena(50_001, 100, metric)
+    d, i = _k1_against_plain("large_k", q[:b], x, valid, xsq, 50_001, metric, exact,
+                             strict=True)
+    live = int(valid.sum())
+    assert (i[:, live:] == -1).all() and np.isinf(d[:, live:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_large_k_kernel_dead_tiles(metric):
+    """An arena whose every third tile is dead never names a row of those
+    tiles."""
+    _cuda()
+    q, x, valid, xsq = _card_arena(50_001, 100, metric)
+    dead = (torch.arange(50_001, device="cuda") // 128) % 3 == 0
+    d, i = _k1_against_plain("large_k", q[:20], x, valid & ~dead, xsq, 2000, metric, True,
+                             strict=True)
+    assert (i >= 0).all() and not dead.cpu().numpy()[i].any()
 
 
 @pytest.mark.cuda
