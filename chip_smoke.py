@@ -16,15 +16,21 @@ Phases, each of which must pass or the script exits non-zero:
    k=2048.  Median device ms of each (CUDA events, 5 runs after 2
    warm-ups), beside its bound (the larger of the operations over the
    card's peak for their type and the bytes over its memory rate, counted
-   from this case's live rows; K1's operations are the lesser of f32 FMA
-   and its TF32 passes on the tensor cores, and the line keeps the FMA
-   figure too), the achieved TFLOP/s and library_ms: the same product alone
-   as one PyTorch call per arena chunk (bf16 matmul with bf16 output for
-   K2, f32 matmul with TF32 off for K1), which the port never calls.  Each
+   from this case's live rows; bf16 operands, K2's and K1's exact=False,
+   count at the bf16 tensor-core rate; K1's f32 operands at the lesser of
+   f32 FMA and its three TF32 passes, and the line keeps the FMA figure
+   too), the achieved TFLOP/s and library_ms: the same product alone as
+   one PyTorch call per arena chunk (bf16 matmul with bf16 output for K2,
+   bf16 matmul with f32 output for K1's exact=False, f32 matmul with TF32
+   off for K1's exact=True), which the port never calls.  Each
    K1 case also prints the largest error of its distances, and of its plain
-   version's, against a float64 product of the rows each returned.  The
-   summary line reports the 1M-row cosine numbers at B=4096 (K1, K2) and
-   B=16 (large k).
+   version's, against a float64 product of the rows each returned.  Two K1
+   cases are the graph build's pools (phase 8): B=4096, k=256, bf16
+   operands (exact=False), l2 over the 1M rows, and an upper layer's, k=64
+   over a 65,536-row sub-arena of which 62,165 rows are live (layer 1 of
+   a 1M-row graph: the level draws are the index's, seed 100).  The summary
+   line reports the 1M-row cosine numbers at B=4096 (K1, K2) and B=16
+   (large k), and the two pool cases as entries of their own.
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -61,14 +67,31 @@ Phases, each of which must pass or the script exits non-zero:
    rows answers nearest_neighbor_batch and a keyed nearest_neighbor as a
    Version over the same rows does, at recall@10 >= 0.99 against the
    exact oracle.
+8. Graph, the hnsw engine at 1M x 128 (the ROADMAP's graph cell): SIFT-
+   statistics proxy rows and 1,024 queries (sift_proxy, a numpy copy of
+   benchmarks/cluster_build.py:40-76, rng seeds 0 and 1) ->
+   EmbeddingHub.load_or_create(dir, engine="hnsw", device="cuda") ->
+   create_space(128, l2) -> one Version.multiset of all rows with the WAL
+   on: one exact bulk build at M=16, efC=200 (must launch K1 for its
+   pools), its seconds by part (pools, prune, symmetrize, upper, host) ->
+   an exact top-10 oracle from K1 (exact=True) -> HNSWIndex.search at ef
+   50, 100 and 200 (expand 8, the bf16 walk), B=1024, k=10: recall@10,
+   device ms per batch (CUDA events around the call, median of 5 after 2
+   warm-ups), beam iterations (hops) and ms per hop; recall@10 at ef=100
+   must be >= 0.95 -> the same at ef=100 on the packed walk (pack_walk) ->
+   save -> the port's gRPC server in process on the data directory (a
+   reopen from the snapshot): nearest_batch, BatchNearestNeighbor and
+   NearestNeighbor give the lists the store gave before the save.  About
+   a minute on an H100.
 
 The launch counters are zeroed just before each path (main: phases 3-4;
-restore: 5; offline: 7) and read just after it; the crash path's (6) are
-those its restarted server process reports.  Each path must have launched
-the kernels it runs.  The second-to-last line is a JSON summary of the
-kernels: "launches" is the main path's count, "paths" each path's own.  The
-last line is {"ok": true, "device": {...}}.  Data comes from numpy with a
-fixed seed.
+restore: 5; offline: 7; graph: 8) and read just after it; the crash
+path's (6) are those its restarted server process reports.  Each path must
+have launched the kernels it runs.  The second-to-last line is a JSON
+summary of the kernels, an entry per summary case: "launches" is the main
+path's count (the graph path's for the pool cases), "paths" each path's
+own.  The last line is {"ok": true, "device": {...}}.  Data comes from
+numpy with a fixed seed.
 """
 
 from __future__ import annotations
@@ -99,10 +122,20 @@ OFFLINE_ROWS, OFFLINE_B = 100_000, 1024
 # nearest share one with odds about 45/782, so recall@10 is near 0.994 by
 # design (0.9995 over the 1M rows of phase 3).
 OFFLINE_RECALL = 0.99
+GRAPH_QUERIES, GRAPH_K, GRAPH_EFS = 1024, 10, (50, 100, 200)
+GRAPH_M, GRAPH_EFC, GRAPH_RECALL = 16, 200, 0.95  # recall@10 at ef=100
+GRAPH_POOL_B, GRAPH_POOL_K = 4096, 256  # the build's layer-0 pools
+# Layer 1 of a 1M-row graph: 62,165 members of the index's level draws
+# (seed 100, P(level >= 1) = 1/16), a sub-arena rounded up to 65,536, pools
+# of 4M = 64.
+UPPER_CAP, UPPER_ROWS, UPPER_K = 1 << 16, 62_165, 64
 # (kernel, metric, B, k, exact, capacity, live rows) compared with its plain
 # version, at every shape a path gives it; exact is K1's operand precision
 # (None for K2, which is always bf16).
 KERNEL_CASES = (
+    ("fused_topk_search", "l2", GRAPH_POOL_B, GRAPH_POOL_K, False, CAP, ROWS),  # graph
+    ("fused_topk_search", "l2", GRAPH_POOL_B, UPPER_K, False, UPPER_CAP, UPPER_ROWS),
+    ("fused_topk_search", "l2", GRAPH_QUERIES, GRAPH_K, True, CAP, ROWS),  # graph oracle
     ("fused_topk_search", "l2", 1024, 16, True, CAP, ROWS),
     ("fused_topk_search", "cosine", 1024, 16, True, CAP, ROWS),
     ("fused_topk_search", "cosine", 1024, 16, False, CAP, ROWS),
@@ -124,10 +157,16 @@ KERNEL_CASES = (
 # FMA outside them, HBM3.
 PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 LIBRARY_CHUNK_BYTES = 1 << 30  # one [B, chunk] product of library_ms at most
-# The case whose numbers the summary line reports, per kernel.
-SUMMARY = {"fused_topk_search": ("cosine", MAIN_B, CAP),
-           "fused_topk_search_v2": ("cosine", MAIN_B, CAP),
-           "fused_topk_search_large_k": ("cosine", BIG_B, CAP)}
+# The cases whose numbers the summary line reports, an entry each: (metric,
+# B, k, exact, capacity) -> (kernel, label).
+SUMMARY = {
+    ("cosine", MAIN_B, 16, True, CAP): ("fused_topk_search", "main"),
+    ("cosine", MAIN_B, 128, None, CAP): ("fused_topk_search_v2", "main"),
+    ("cosine", BIG_B, BIG_K, True, CAP): ("fused_topk_search_large_k", "main"),
+    ("l2", GRAPH_POOL_B, GRAPH_POOL_K, False, CAP): ("fused_topk_search", "graph pool"),
+    ("l2", GRAPH_POOL_B, UPPER_K, False, UPPER_CAP): ("fused_topk_search",
+                                                       "graph upper-layer pool"),
+}
 FLUSH = 4096  # the server's MultiSet flush size
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
@@ -197,20 +236,20 @@ def bound(name, b, rows, cap, dims, k, exact=True):
     """(ms, "operations" or "bytes", unit, f32 FMA ms): the least time the
     card could take for a kernel's work at this case.  Operations:
     2*B*rows*D products and sums over the live rows, on bf16 tensor cores
-    for K2; for K1 the lesser of f32 FMA and its TF32 passes on the tensor
-    cores (three for the compensated split, one with bf16 operands), named
-    in ``unit``, with the FMA figure returned beside it.  Bytes: each input
-    read once (the live rows of the arena, bf16 for K2 and f32 for K1, and
-    their x_sq; the whole valid mask; the f32 queries) and the [B, k]
-    results written once."""
+    for bf16 operands (K2, and K1 with ``exact=False``: one bf16 product
+    with f32 sums computes its scores); for K1's f32 operands the lesser of
+    f32 FMA and three TF32 passes on the tensor cores (its compensated
+    split), named in ``unit``, with the FMA figure returned beside it.
+    Bytes: each input read once (the live rows of the arena, bf16 for K2
+    and f32 for K1, and their x_sq; the whole valid mask; the f32 queries)
+    and the [B, k] results written once."""
     k2 = name == "fused_topk_search_v2"
     flops = 2 * b * rows * dims
     fma_ms = flops / PEAK_F32 * 1e3
-    if k2:
+    if k2 or not exact:
         ops_ms, unit = flops / PEAK_BF16 * 1e3, "bf16"
     else:
-        passes = 3 if exact else 1
-        ops_ms, unit = min((passes * flops / PEAK_TF32 * 1e3, f"{passes} TF32 passes"),
+        ops_ms, unit = min((3 * flops / PEAK_TF32 * 1e3, "3 TF32 passes"),
                            (fma_ms, "f32 FMA"))
     nbytes = rows * (dims * (2 if k2 else 4) + 4) + cap + b * dims * 4 + b * k * 8
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -247,21 +286,25 @@ def f64_error(torch, q, x, x_sq, got, metric, bf16):
     return worst
 
 
-def library_product(torch, name, q, x, xb):
+def library_product(torch, name, q, x, xb, exact=True):
     """The product alone, as a library would compute it before any top-k:
-    bf16 ``q @ xb.T`` with bf16 output for K2, f32 ``q @ x.T`` (TF32 off)
-    for K1, one ``torch.matmul`` per arena chunk of at most
+    bf16 ``q @ xb.T`` with bf16 output for K2, the same with f32 output for
+    K1's bf16 operands (``exact=False``), f32 ``q @ x.T`` (TF32 off) for
+    K1's f32 operands; one ``torch.mm`` per arena chunk of at most
     LIBRARY_CHUNK_BYTES of output."""
     from embeddinghub_tpu_torch.ops import fused_topk as F
 
     k2 = name == "fused_topk_search_v2"
-    lhs = F.arena_bf16(q) if k2 else q.float()
-    rhs = xb if k2 else x
-    chunk = max(F.GROUP, LIBRARY_CHUNK_BYTES // (lhs.element_size() * lhs.shape[0]))
+    bf16 = k2 or not exact
+    lhs = F.arena_bf16(q) if bf16 else q.float()
+    rhs = xb if bf16 else x
+    kw = {"out_dtype": torch.float32} if bf16 and not k2 else {}
+    out_size = 2 if k2 else 4
+    chunk = max(F.GROUP, LIBRARY_CHUNK_BYTES // (out_size * lhs.shape[0]))
 
     def run():
         for s in range(0, rhs.shape[0], chunk):
-            torch.matmul(lhs, rhs[s:s + chunk].T)
+            torch.mm(lhs, rhs[s:s + chunk].T, **kw)
     return run
 
 
@@ -313,7 +356,8 @@ def phase_kernels(torch, x_host, report):
                        f" plain_f64_err={f64_error(torch, q, x, x_sq, want, metric, bf16):.3g}")
             ms = device_ms(torch, lambda: kernel(q, arena, valid, x_sq, **args))
             plain_ms = device_ms(torch, lambda: plain(q, arena, valid, x_sq, **args))
-            library_ms = device_ms(torch, library_product(torch, name, q, x, xb))
+            library_ms = device_ms(torch, library_product(torch, name, q, x, xb,
+                                                          exact is not False))
             bound_ms, bound_by, unit, fma_ms = bound(name, b, rows, cap, DIMS, k,
                                                      exact is not False)
             tflops = 2 * b * rows * DIMS / (ms * 1e-3) / 1e12
@@ -324,12 +368,15 @@ def phase_kernels(torch, x_host, report):
                   f"bound_ms={bound_ms:.3f} ({bound_by}: {unit}; f32 FMA "
                   f"{fma_ms:.3f}) tflops={tflops:.1f} "
                   f"library_ms={library_ms:.3f}", flush=True)
-            entry = report.setdefault(name, {"max_abs_err": 0.0})
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            if SUMMARY[name] == (metric, b, cap) and exact is not False:
-                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, bound_unit=unit, fma_bound_ms=fma_ms,
-                             library_ms=library_ms)
+            worst = report.setdefault(name, {"max_abs_err": 0.0})
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            label = SUMMARY.get((metric, b, k, exact, cap))
+            if label is not None:
+                report[label] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bound_unit=unit, fma_bound_ms=fma_ms,
+                    library_ms=library_ms,
+                    shape=f"{metric} B={b} k={k} exact={exact} cap={cap} rows={rows}")
         del x_full, xb_full, x_sq_full, x, xb, x_sq, valid
     del raw, q_all
     torch.cuda.empty_cache()
@@ -711,6 +758,156 @@ def phase_offline(torch, x_host):
     torch.cuda.empty_cache()
 
 
+def sift_proxy(n: int, nq: int, dims: int):
+    """SIFT-descriptor-statistics rows ``[n, dims]`` and queries ``[nq,
+    dims]``, integer-valued f32: a numpy copy of ``sift_desc_chunked`` in
+    benchmarks/cluster_build.py:40-76 (the same draws, chunk by chunk, from
+    rng seeds 0 and 1), which imports the JAX package's benchmarks."""
+    chunk = 1 << 18
+    rng = np.random.default_rng(0)
+    qrng = np.random.default_rng(1)
+
+    def sample_desc(count, r):
+        base_ori = r.uniform(0, 8, size=(count, 1, 1))
+        drift = r.normal(0, 1.2, size=(count, 4, 4)).cumsum(2)
+        ori = (base_ori + drift) % 8
+        bins = np.arange(8)[None, None, None, :]
+        ang = np.minimum(np.abs(bins - ori[..., None]), 8 - np.abs(bins - ori[..., None]))
+        resp = np.exp(-(ang ** 2) / (2 * 1.1 ** 2))
+        energy = r.gamma(2.0, 1.0, size=(count, 4, 4, 1))
+        noise = r.gamma(1.0, 0.25, size=(count, 4, 4, 8))
+        d = (resp * energy + noise).reshape(count, 128)
+        d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-12
+        d = np.minimum(d, 0.2)
+        d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-12
+        return np.floor(512.0 * d).astype(np.float32)
+
+    train = np.empty((n, dims), np.float32)
+    for done in range(0, n, chunk):
+        train[done:done + chunk] = sample_desc(min(chunk, n - done), rng)
+    return train, sample_desc(nq, qrng)
+
+
+def phase_graph(torch, launches, wire):
+    from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
+    from embeddinghub_tpu_torch.ops import distance as D
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+    from embeddinghub_tpu_torch.store.hub import EmbeddingHub
+    from embeddinghub_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    train, test = sift_proxy(ROWS, GRAPH_QUERIES, DIMS)
+    print(f"[graph] SIFT proxy {ROWS} x {DIMS} and {GRAPH_QUERIES} queries: "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+    keys = [f"g{j}" for j in range(ROWS)]
+    config = Config(engine="hnsw", hnsw_m=GRAPH_M, hnsw_ef_construction=GRAPH_EFC)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        base = Path(tmp) / "store"
+        hub = EmbeddingHub.load_or_create(base, engine="hnsw", device="cuda")
+        version = hub.create_space("graph", DIMS, "l2").default_version()
+        index = version.index
+        check(isinstance(index, HNSWIndex) and (index.m, index.ef_construction)
+              == (GRAPH_M, GRAPH_EFC), "engine=hnsw did not give an M=16 efC=200 graph")
+        before = launches["fused_topk_search"]
+        t0 = time.perf_counter()
+        version.multiset(zip(keys, train))
+        ingest_s = time.perf_counter() - t0
+        built = launches["fused_topk_search"] - before
+        check(built > 0, "the bulk build did not launch K1")
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in index.build_seconds.items())
+        print(f"[graph] multiset {ROWS} rows, WAL on, one exact bulk build: "
+              f"{ingest_s:.2f} s; build {sum(index.build_seconds.values()):.2f} s "
+              f"({parts}); K1 launched {built} times; levels up to "
+              f"{index._max_level}", flush=True)
+
+        x_dev = torch.from_numpy(train).cuda()
+        q_dev = torch.from_numpy(test).cuda()
+        valid = torch.ones(ROWS, dtype=torch.bool, device="cuda")
+        _, oracle = F.exact_topk(q_dev, x_dev, valid, D.sqnorms(x_dev), k=GRAPH_K,
+                                 metric="l2", exact=True)
+        oracle = oracle.cpu().numpy()
+        del x_dev, q_dev, valid
+
+        def walk(ef, what):
+            _, ids = index.search(test, GRAPH_K, ef=ef)
+            recall = np.mean([len(set(a) & set(b)) / GRAPH_K
+                              for a, b in zip(ids, oracle)])
+            ms = device_ms(torch, lambda: index.search(test, GRAPH_K, ef=ef))
+            hops = index.last_hops
+            print(f"[graph] search {what} B={GRAPH_QUERIES} k={GRAPH_K} ef={ef}: "
+                  f"recall@{GRAPH_K} {recall:.4f}; {ms:.3f} ms per batch, "
+                  f"{hops} hops, {ms / hops:.3f} ms per hop", flush=True)
+            return recall
+
+        recalls = {ef: walk(ef, "bf16 walk") for ef in GRAPH_EFS}
+        check(recalls[100] >= GRAPH_RECALL,
+              f"recall@10 at ef=100 {recalls[100]} < {GRAPH_RECALL}")
+        t0 = time.perf_counter()
+        index.pack_walk()
+        torch.cuda.synchronize()
+        print(f"[graph] pack_walk: {time.perf_counter() - t0:.2f} s", flush=True)
+        walk(100, "packed walk")
+        index.walk_packed = False
+
+        want = version.nearest_batch(test, GRAPH_K)
+        singles = [version.nearest(GRAPH_K, vector=test[j]) for j in range(8)]
+        t0 = time.perf_counter()
+        hub.save()
+        save_s = time.perf_counter() - t0
+        del hub, version, index
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[graph] save: {save_s:.2f} s; snapshot "
+              f"{dir_bytes(base / 'graph' / 'initial')} bytes", flush=True)
+        if not wire:
+            again = EmbeddingHub.load_or_create(base, engine="hnsw", device="cuda")
+            check(again.get_version("graph").nearest_batch(test, GRAPH_K) == want,
+                  "nearest_batch after the reopen differs")
+            print("[graph] over the wire: not run (grpc is not installed); "
+                  "reopened from the snapshot, nearest_batch lists equal", flush=True)
+            return
+        import grpc
+
+        from embeddinghub_tpu_torch.service.server import build_server, pb, pb_grpc
+
+        t0 = time.perf_counter()
+        server, service, port = build_server("127.0.0.1:0", "cuda", data_dir=str(base),
+                                             config=config)
+        reopen_s = time.perf_counter() - t0
+        server.start()
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        try:
+            version = service._store.get_version("graph")
+            check(isinstance(version.index, HNSWIndex) and version.size == ROWS,
+                  "the reopened store holds no 1M-row graph")
+            check(version.nearest_batch(test, GRAPH_K) == want,
+                  "nearest_batch after the reopen differs")
+            stub = pb_grpc.EmbeddingHubStub(channel)
+            req = pb.BatchNearestNeighborRequest(space="graph", num=GRAPH_K)
+            for qv in test:
+                req.embeddings.add().values[:] = qv.tolist()
+            resp = stub.BatchNearestNeighbor(req)
+            check([list(r.keys) for r in resp.results] == want,
+                  "BatchNearestNeighbor differs from the store before the save")
+            for j, keys_j in enumerate(singles):
+                resp = stub.NearestNeighbor(pb.NearestNeighborRequest(
+                    space="graph", embedding=pb.Embedding(values=test[j].tolist()),
+                    num=GRAPH_K))
+                check(list(resp.keys) == keys_j,
+                      "NearestNeighbor differs from the store before the save")
+        finally:
+            channel.close()
+            server.stop(0).wait()
+            service.stop()
+        print(f"[graph] reopened from the snapshot in process ({reopen_s:.2f} s): "
+              f"nearest_batch, BatchNearestNeighbor (B={GRAPH_QUERIES}) and "
+              f"NearestNeighbor (8 queries) equal the lists before the save",
+              flush=True)
+        del service, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -748,9 +945,11 @@ def main() -> int:
                                                      "fused_topk_search_v2"),
              "restore": tuple(F.LAUNCHES),
              "offline": ("fused_topk_search_v2",),
+             "graph": ("fused_topk_search",),
              "crash": ("fused_topk_search",)}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
-                      ("offline", lambda: phase_offline(torch, x_host))):
+                      ("offline", lambda: phase_offline(torch, x_host)),
+                      ("graph", lambda: phase_graph(torch, F.LAUNCHES, wire))):
         F.reset_launches()
         run()
         paths[path] = dict(F.LAUNCHES)
@@ -769,15 +968,24 @@ def main() -> int:
     sources = {"fused_topk_search": "embeddinghub_tpu_torch/csrc/k1_scan.cu",
                "fused_topk_search_v2": "embeddinghub_tpu_torch/csrc/k2_scan.cu",
                "fused_topk_search_large_k": "embeddinghub_tpu_torch/csrc/k1_scan.cu"}
-    # launches: the main path's count; paths: each path's own
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name],
-         "replaces": replaces[name], "launches": paths["main"][name],
-         "paths": {path: counts.get(name, 0) for path, counts in paths.items()},
-         **{key: report[name][key] for key in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
-             "fma_bound_ms", "library_ms")}}
-        for name in replaces]}), flush=True)
+    # An entry per summary case.  launches: the count of the path the case
+    # belongs to (the main path's; the graph path's for the pool shapes);
+    # paths: each path's own.  A main entry's max_abs_err is its kernel's
+    # largest over every case.
+    entries = []
+    for name, label in SUMMARY.values():
+        path = "main" if label == "main" else "graph"
+        numbers = dict(report[(name, label)])
+        if label == "main":
+            numbers["max_abs_err"] = report[name]["max_abs_err"]
+        entries.append({
+            "name": name, "case": label, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": paths[path][name],
+            "paths": {p: counts.get(name, 0) for p, counts in paths.items()},
+            **{key: numbers[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
+                "fma_bound_ms", "library_ms", "shape")}})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -94,3 +94,73 @@ def approx_oversample_search(q, x, xb, valid, x_sq, *, metric="l2", k=10,
 # which use it; these are the reference's names for it.
 merge_topk = fused_topk.merge_topk
 _merge_topk = merge_topk
+
+
+# ------------------------------------------------------------- graph pools
+
+# Rows at most this wide are ordered by one stable sort; wider ones by a
+# top-k whose boundary ties are then settled by column.
+_SORT_WIDTH = 2048
+
+
+def smallest_k(d: torch.Tensor, k: int):
+    """The ``k`` smallest values of each row of ``d`` and their columns,
+    smallest first, equal values in column order: ``lax.top_k(-d, k)``'s
+    order, on which every id the graph engine picks depends.  (``torch.topk``
+    leaves the order of equal values open.)"""
+    if d.shape[1] <= _SORT_WIDTH:
+        v, i = torch.sort(d, dim=1, stable=True)
+        return v[:, :k], i[:, :k]
+    kth = torch.topk(d, k, dim=1, largest=False).values[:, -1:]
+    below = d < kth
+    tied = d == kth
+    need = k - below.sum(dim=1, keepdim=True)
+    take = below | (tied & (torch.cumsum(tied, dim=1) <= need))
+    cols = torch.arange(d.shape[1], device=d.device).expand_as(d)
+    cols = torch.topk(torch.where(take, cols, d.shape[1]), k, dim=1,
+                      largest=False).values
+    v, pos = torch.sort(torch.gather(d, 1, cols), dim=1, stable=True)
+    return v, torch.gather(cols, 1, pos)
+
+
+def pooled_topk_ids(q, x, valid, x_sq, *, metric="l2", k=256, chunk=1 << 16,
+                    margin=2):
+    """The graph build's candidate pool (``ops/topk.py:846`` of the
+    reference): the ids of each query's ``k`` best rows on bf16-rounded
+    operands with f32 sums, ``-1`` where fewer than ``k`` rows are live.
+
+    On CUDA it is K1 with ``exact=False`` (one pass on bf16-rounded
+    operands).  The reference's per-chunk ``approx_max_k`` pool and its
+    containment margin work around the TPU's sort; K1 keeps an exact running
+    list instead, so ``chunk`` and ``margin`` are accepted and unused.  The
+    cosine callers pass ``metric="ip"`` on unit rows, as the reference's
+    do."""
+    if x.device.type == "cpu":
+        return pooled_topk_ids_reference(q, x, valid, x_sq, metric=metric, k=k)
+    _, ids = fused_topk.exact_topk(q, x, valid, x_sq, k=k, metric=metric,
+                                   exact=False)
+    return ids
+
+
+def pooled_topk_ids_reference(q, x, valid, x_sq, *, metric="l2", k=256,
+                              chunk=1 << 16):
+    """Plain :func:`pooled_topk_ids`: a chunked product on bf16-rounded
+    operands in f32, then a top-k that breaks ties to the lower row."""
+    q = q.to(torch.float32)
+    if metric == "cosine":
+        q = D.normalize(q)
+    qc = D.round_bf16(q)
+    best_s = best_i = None
+    for s in range(0, x.shape[0], chunk):
+        dots = qc @ D.round_bf16(x[s:s + chunk].to(torch.float32)).T
+        sc = x_sq[s:s + chunk][None, :] - 2.0 * dots if metric == "l2" else -dots
+        sc = torch.where(valid[s:s + chunk][None, :], sc, INF)
+        cols = torch.arange(s, s + sc.shape[1], device=q.device).expand_as(sc)
+        if best_s is not None:  # earlier chunks hold lower rows: first on ties
+            sc, cols = torch.cat([best_s, sc], 1), torch.cat([best_i, cols], 1)
+        best_s, pos = smallest_k(sc, min(k, sc.shape[1]))
+        best_i = torch.gather(cols, 1, pos)
+    ids = torch.where(torch.isfinite(best_s), best_i, -1)
+    if ids.shape[1] < k:
+        ids = torch.nn.functional.pad(ids, (0, k - ids.shape[1]), value=-1)
+    return ids.to(torch.int32)

@@ -240,9 +240,10 @@ def build_server(address: str, device: torch.device | str,
     ``(server, service, port)``; ``port`` is the bound port (useful with
     ``host:0``)."""
     config = config or get_config()
-    store = (EmbeddingHub.load_or_create(data_dir, engine=config.engine, device=device)
+    store = (EmbeddingHub.load_or_create(data_dir, engine=config.engine, device=device,
+                                         config=config)
              if data_dir else
-             EmbeddingHub.in_memory(engine=config.engine, device=device))
+             EmbeddingHub.in_memory(engine=config.engine, device=device, config=config))
     service = EmbeddingHubService(store, config)
     server = make_server(cf.ThreadPoolExecutor(max_workers=max_workers))
     pb_grpc.add_EmbeddingHubServicer_to_server(service, server)

@@ -14,9 +14,15 @@ default raises).  On CUDA it turns TF32 off for the process
   * ``save`` snapshots every space, which truncates their WALs.
 
 The on-disk format is the reference's, so a data directory written by
-either package opens in the other.  Only the default ``flat`` engine
-(float32 arena) is ported; every other engine of the reference raises
-``NotImplementedError`` naming its ROADMAP item.
+either package opens in the other.  Two engines are ported: ``flat`` (the
+float32 arena, the default) and ``hnsw`` (``index/hnsw.py``, built with
+the ``hnsw_*`` knobs of ``utils/config.py``, as the reference's
+``_make_index``).  Every other engine of the reference raises
+``NotImplementedError`` naming its ROADMAP item, and so does ``hnsw`` with
+``hnsw_seed_probes > 0`` (the centroid route needs k-means, which is not
+ported).  The engine picks the index of new versions and of versions rebuilt
+from a WAL alone; a snapshot names its own index type.  The hnsw knobs come
+from the ``config`` the caller passes (``get_config()`` without one).
 """
 
 from __future__ import annotations
@@ -29,8 +35,11 @@ from pathlib import Path
 
 import torch
 
+from embeddinghub_tpu_torch.index.hnsw import NOT_PORTED as HNSW_NOT_PORTED
+from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
 from embeddinghub_tpu_torch.ops import distance as dist_ops
 from embeddinghub_tpu_torch.store.space import DEFAULT_VERSION, Space
+from embeddinghub_tpu_torch.utils.config import Config, get_config
 from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
 
@@ -42,7 +51,6 @@ _NOT_PORTED = {
     "sharded": "multi-device",
     "sharded-int8": "multi-device",
     "sharded-int8x2": "multi-device",
-    "hnsw": "graph engine, serving",
     "hnsw-sharded": "multi-device",
 }
 
@@ -53,14 +61,19 @@ class EmbeddingHub:
         base_path: str | Path | None = None,
         engine: str = "flat",
         device: torch.device | str = DEFAULT_DEVICE,
+        config: Config | None = None,
     ):
         if engine in _NOT_PORTED:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet; see ROADMAP.md queue 1, "
                 f"{_NOT_PORTED[engine]}"
             )
-        if engine != "flat":
+        if engine not in ("flat", "hnsw"):
             raise ValueError(f"unknown engine {engine!r}")
+        self.config = config if config is not None else get_config()
+        if engine == "hnsw" and self.config.hnsw_seed_probes > 0:
+            raise NotImplementedError(
+                f"hnsw_seed_probes > 0 (HNSWIndex.build_route, kmeans) {HNSW_NOT_PORTED}")
         self.base_path = Path(base_path) if base_path is not None else None
         self.engine = engine
         self.device = resolve_device(device)
@@ -80,6 +93,16 @@ class EmbeddingHub:
     def in_memory(cls, **kw) -> "EmbeddingHub":
         return cls(None, **kw)
 
+    def _make_index(self, dims: int, metric: str):
+        """The index of a new version: ``None`` (the version's default
+        ``FlatIndex``) or an ``HNSWIndex`` from the configuration."""
+        if self.engine == "flat":
+            return None
+        cfg = self.config
+        return HNSWIndex(dims, metric=metric, m=cfg.hnsw_m,
+                         ef_construction=cfg.hnsw_ef_construction,
+                         ef_search=cfg.hnsw_ef_search, device=self.device)
+
     # ----------------------------------------------------------------- spaces
 
     def create_space(self, name: str, dims: int, metric: str = "l2") -> Space:
@@ -88,8 +111,10 @@ class EmbeddingHub:
         with self._lock:
             if name in self._spaces:
                 return self._spaces[name]
-            space = Space(name, self._space_path(name), device=self.device)
-            space.create_version(DEFAULT_VERSION, dims, metric)
+            space = Space(name, self._space_path(name), device=self.device,
+                          make_index=self._make_index)
+            space.create_version(DEFAULT_VERSION, dims, metric,
+                                 index=self._make_index(dims, metric))
             self._spaces[name] = space
             self._save_manifest()
             return space
@@ -149,4 +174,5 @@ class EmbeddingHub:
             # the space's directory under this base path: the manifest's
             # "path" goes stale when the data directory moves
             self._spaces[name] = Space.load(name, self._space_path(name),
-                                            device=self.device)
+                                            device=self.device,
+                                            make_index=self._make_index)

@@ -38,6 +38,18 @@ class KeyMap:
             (self.assign(k) for k in keys), dtype=np.int64, count=len(keys)
         )
 
+    def mark(self):
+        """A point to :meth:`rollback` to, taken before ``assign_many``."""
+        return len(self._key_to_row), self._next_row, list(self._free)
+
+    def rollback(self, mark) -> None:
+        """Forget the keys assigned since ``mark`` (releases in between are
+        not undone)."""
+        n_keys, self._next_row, self._free = mark
+        while len(self._key_to_row) > n_keys:
+            _, row = self._key_to_row.popitem()  # the newest key
+            del self._row_to_key[row]
+
     def row(self, key: str) -> int | None:
         return self._key_to_row.get(key)
 

@@ -18,7 +18,10 @@ WAL record format (little-endian):
 
 Replay applies runs of consecutive ``set`` records as one batched
 ``multiset`` (:func:`_replay_into`); the result is exactly that of applying
-them one by one, as the reference does.
+them one by one, as the reference does.  A graph index takes a run whole:
+its one cold add is the bulk build of the rows that were written, and a
+replay that needs a second add raises the graph index's
+``NotImplementedError`` rather than build a different graph.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from pathlib import Path
 import numpy as np
 
 from embeddinghub_tpu_torch.index.flat import FlatIndex
+from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
 from embeddinghub_tpu_torch.store import errors
 from embeddinghub_tpu_torch.store.keymap import KeyMap
 from embeddinghub_tpu_torch.store.version import Version
@@ -46,7 +50,6 @@ REPLAY_BATCH = 4096
 
 # snapshot index type -> the ROADMAP.md queue 1 item that ports it
 _NOT_PORTED = {
-    "HNSWIndex": "graph engine, serving",
     "ShardedFlatIndex": "multi-device",
     "ShardedHNSWIndex": "multi-device",
 }
@@ -151,6 +154,8 @@ def _index_class(name: str):
     """The index class a snapshot's ``index_type`` names."""
     if name == "FlatIndex":
         return FlatIndex
+    if name == "HNSWIndex":
+        return HNSWIndex
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"snapshot index type {name!r} is not ported yet; see ROADMAP.md "
@@ -225,9 +230,11 @@ def _replay_into(version, wal_path) -> None:
     key takes its row at its first record and keeps its last vector, which
     is what record-by-record replay gives: ``multiset``'s own keep-last
     dedup would order rows by last appearance instead, so the run is
-    deduplicated here first."""
+    deduplicated here first.  A graph index takes each run whole (see the
+    module docstring)."""
     run: dict[str, np.ndarray] = {}  # insertion order = first appearance
     n_run = 0
+    batch = None if isinstance(version.index, HNSWIndex) else REPLAY_BATCH
 
     def flush():
         nonlocal n_run
@@ -241,7 +248,7 @@ def _replay_into(version, wal_path) -> None:
         if rec[0] == "set":
             run[rec[1]] = rec[2]
             n_run += 1
-            if n_run >= REPLAY_BATCH:
+            if batch is not None and n_run >= batch:
                 flush()
             continue
         flush()

@@ -4,7 +4,8 @@ The twin of ``embeddinghub_tpu/store/space.py``.  With a ``path`` a space
 is a directory with one subdirectory per version: its ``config.json``
 row (space, name, dims, metric), its WAL ``wal.bin`` and, once saved, its
 snapshot (``store/persistence.py``).  Every index is created or loaded on
-the space's ``device``.
+the space's ``device``; ``make_index(dims, metric)`` gives the index of a
+version rebuilt from its WAL alone (``None``: a ``FlatIndex``).
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ DEFAULT_VERSION = "initial"
 
 class Space:
     def __init__(self, name: str, path: str | Path | None = None,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, make_index=None):
         self.name = name
         self.path = Path(path) if path is not None else None
         self.device = device
+        self.make_index = make_index
         self._versions: dict[str, Version] = {}
 
     def create_version(self, name: str, dims: int, metric: str = "l2",
@@ -67,8 +69,9 @@ class Space:
             save_version(self.path / name, version)
 
     @classmethod
-    def load(cls, name: str, path: str | Path, device=DEFAULT_DEVICE) -> "Space":
-        space = cls(name, path, device=device)
+    def load(cls, name: str, path: str | Path, device=DEFAULT_DEVICE,
+             make_index=None) -> "Space":
+        space = cls(name, path, device=device, make_index=make_index)
         path = Path(path)
         if path.exists():
             for vdir in sorted(p for p in path.iterdir() if p.is_dir()):
@@ -95,7 +98,9 @@ class Space:
                     break
             if dims is None:
                 return
-        version = Version(self.name, vdir.name, dims, metric, device=self.device)
+        index = self.make_index(dims, metric) if self.make_index else None
+        version = Version(self.name, vdir.name, dims, metric, index=index,
+                          device=self.device)
         _replay_into(version, vdir / "wal.bin")
         version._wal = VersionWal(vdir / "wal.bin")
         self._versions[vdir.name] = version

@@ -3,7 +3,8 @@
 The twin of ``embeddinghub_tpu/store/version.py``:
 
   * ``set``/``multiset`` write the index's host arena and mark its device
-    mirror dirty; a batch with repeated keys keeps the last value;
+    mirror dirty; a batch with repeated keys keeps the last value; a batch
+    the index refuses or fails to add leaves the keys as they were;
   * with a WAL (``store/persistence.py``), every write, delete and freeze
     is appended before the call returns, under ``lock``, so an
     acknowledged write is in the log and a snapshot taken under the same
@@ -77,9 +78,14 @@ class Version:
                 order = sorted(last.values())
                 keys = [keys[i] for i in order]
                 vecs = [vecs[i] for i in order]
-            rows = self.keymap.assign_many(keys)
             mat = np.stack(vecs)
-            self.index.add(rows, mat)
+            mark = self.keymap.mark()
+            rows = self.keymap.assign_many(keys)
+            try:
+                self.index.add(rows, mat)
+            except BaseException:
+                self.keymap.rollback(mark)
+                raise
             if self._wal is not None:
                 self._wal.append_many(keys, mat)
 
@@ -87,10 +93,11 @@ class Version:
         with self.lock:
             if self.immutable:
                 raise errors.ImmutableVersionError(self.space, self.name)
-            row = self.keymap.release(str(key))
+            row = self.keymap.row(str(key))
             if row is None:
                 raise errors.KeyNotFoundError(self.space, key)
             self.index.remove(np.asarray([row]))
+            self.keymap.release(str(key))
             if self._wal is not None:
                 self._wal.append_delete(str(key))
 

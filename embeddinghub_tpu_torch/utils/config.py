@@ -1,8 +1,8 @@
 """Environment-driven configuration of the port's server: the fields of the
 JAX package's ``utils/config.py`` that the port reads, under the same
 environment variables, so one deployment configures both packages alike.
-The JAX package's other knobs (HNSW, quantization audit, compute dtype,
-initial capacity, mesh) belong to modules that are not ported yet.
+The JAX package's other knobs (quantization audit, compute dtype, initial
+capacity, mesh) belong to modules that are not ported yet.
 
 Mirrors the reference's env-var config style (reference:
 ``main/main.go:59-66`` / ``config/config.go``) with typed accessors.
@@ -35,10 +35,20 @@ class Config:
     data_dir: str = "embedding_store.dat"
 
     # Engine knobs
-    engine: str = "flat"                # only "flat" is ported (store/hub.py)
+    engine: str = "flat"                # "flat" | "hnsw" (store/hub.py)
     default_metric: str = "l2"          # "l2" | "cosine" | "ip"
     query_batch_window_ms: float = 2.0  # server-side batching window
     max_query_batch: int = 1024
+
+    # HNSW defaults: hnswlib's (reference index.cc:10-15: M=16,
+    # efConstruction=200, ef=10).  hnsw_seed_probes > 0 routes searches by
+    # k-means centroids past hnsw_route_min rows in the JAX package; the
+    # port's hub refuses it until HNSWIndex.build_route is ported.
+    hnsw_m: int = 16
+    hnsw_ef_construction: int = 200
+    hnsw_ef_search: int = 10
+    hnsw_seed_probes: int = 0
+    hnsw_route_min: int = 1 << 20
 
     @staticmethod
     def from_env() -> "Config":
@@ -50,6 +60,11 @@ class Config:
             default_metric=_env("EMBEDDINGHUB_METRIC", "l2"),
             query_batch_window_ms=float(_env("EMBEDDINGHUB_BATCH_WINDOW_MS", "2.0")),
             max_query_batch=_env_int("EMBEDDINGHUB_MAX_BATCH", 1024),
+            hnsw_m=_env_int("EMBEDDINGHUB_HNSW_M", 16),
+            hnsw_ef_construction=_env_int("EMBEDDINGHUB_HNSW_EFC", 200),
+            hnsw_ef_search=_env_int("EMBEDDINGHUB_HNSW_EF", 10),
+            hnsw_seed_probes=_env_int("EMBEDDINGHUB_HNSW_SEED_PROBES", 0),
+            hnsw_route_min=_env_int("EMBEDDINGHUB_HNSW_ROUTE_MIN", 1 << 20),
         )
 
 

@@ -38,6 +38,8 @@ def _forbidden(name: str) -> bool:
     "embeddinghub_tpu_torch.ops.distance, embeddinghub_tpu_torch.ops.fused_topk, "
     "embeddinghub_tpu_torch.ops.topk, embeddinghub_tpu_torch.ops._build",
     "embeddinghub_tpu_torch.index.base, embeddinghub_tpu_torch.index.flat",
+    "embeddinghub_tpu_torch.index.hnsw, embeddinghub_tpu_torch.ops.beam, "
+    "embeddinghub_tpu_torch.ops.nn_descent, embeddinghub_tpu_torch.ops.wave_insert",
     "embeddinghub_tpu_torch.store.errors, embeddinghub_tpu_torch.store.keymap, "
     "embeddinghub_tpu_torch.store.version, embeddinghub_tpu_torch.store.space, "
     "embeddinghub_tpu_torch.store.hub",

@@ -223,6 +223,6 @@ def test_unported_snapshot_types_raise(tmp_path):
     hub.create_space("a", D).default_version().set("x", _vecs(41, 1)[0])
     hub.save()
     meta_path = tmp_path / "store" / "a" / "initial" / "meta.json"
-    meta_path.write_text(meta_path.read_text().replace('"FlatIndex"', '"HNSWIndex"'))
+    meta_path.write_text(meta_path.read_text().replace('"FlatIndex"', '"ShardedHNSWIndex"'))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")

@@ -109,9 +109,11 @@ def test_hub_semantics():
     assert sorted(hub.spaces()) == ["a", "b"]
     hub.delete_space("a")
     assert hub.get_space("a") is None and hub.get_version("a") is None
-    for engine in ("hnsw", "flat-int8", "sharded"):
+    for engine in ("hnsw-sharded", "flat-int8", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EmbeddingHub.in_memory(engine=engine)
+    graph = EmbeddingHub.in_memory(engine="hnsw", device="cpu").create_space("g", D)
+    assert type(graph.default_version().index).__name__ == "HNSWIndex"
     with pytest.raises(ValueError):
         EmbeddingHub.in_memory(engine="nope")
     assert Space("p", device="cpu").path is None and hub.base_path is None
