@@ -28,9 +28,14 @@ Phases, each of which must pass or the script exits non-zero:
    cases are the graph build's pools (phase 8): B=4096, k=256, bf16
    operands (exact=False), l2 over the 1M rows, and an upper layer's, k=64
    over a 65,536-row sub-arena of which 62,165 rows are live (layer 1 of
-   a 1M-row graph: the level draws are the index's, seed 100).  The summary
-   line reports the 1M-row cosine numbers at B=4096 (K1, K2) and B=16
-   (large k), and the two pool cases as entries of their own.
+   a 1M-row graph: the level draws are the index's, seed 100).  Three K1
+   cases are the graph writes' pools (phase 9), bf16 operands at B=4096:
+   the layer-0 wave pool, k=200 over the arena's live prefix of 1,114,688
+   rows (the last wave's high-water mark); the upper wave pool, k=64 over
+   the 69,197 rows of layer 1's members; and refine's pools, k=256 over
+   1,118,784 rows of which 1,108,784 are live.  The summary line reports
+   the 1M-row cosine numbers at B=4096 (K1, K2) and B=16 (large k), and
+   the graph build's and the waves' pool cases as entries of their own.
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -83,14 +88,31 @@ Phases, each of which must pass or the script exits non-zero:
    reopen from the snapshot): nearest_batch, BatchNearestNeighbor and
    NearestNeighbor give the lists the store gave before the save.  About
    a minute on an H100.
+9. Graph writes, into the store phase 8 reopened (no second build): 24
+   Version.multiset calls of 4,096 new SIFT-proxy rows (rng seed 2), one
+   wave each (K1 must launch): rows/s, median ms a wave, the wave's parts
+   (HNSWIndex.wave_seconds: layer-0 pool, upper pools, scatter, prune,
+   reciprocal commits, device-state rebuild, host, the rollback copies)
+   and the capacity-growth
+   wave (2**20 -> 2**21 rows) apart -> a raw-stub MultiSet of 20,480 rows
+   over the wire (5 flushes, 5 waves; by multiset without grpc) ->
+   recall@10 at ef 50/100/200 against an exact K1 oracle over every live
+   row (ef=100 must reach 0.95) and a self-check (1,024 inserted rows
+   find themselves in their top 10 at ef=100 at a rate of 0.99 or more)
+   -> 10,000 Version.delete calls, half old rows and half new (deletes/s;
+   no deleted key in any list; recall at ef=100 still 0.95) -> refine of
+   8,192 inserted rows (K1 must launch; recall may fall by 0.005 at most)
+   -> save, then one more wave and 100 deletes unsaved -> the store
+   dropped and reopened from snapshot + WAL: every acknowledged key
+   bit-exact (Get), no deleted key, recall at ef=100 still 0.95.
 
 The launch counters are zeroed just before each path (main: phases 3-4;
-restore: 5; offline: 7; graph: 8) and read just after it; the crash
+restore: 5; offline: 7; graph: 8; writes: 9) and read just after it; the crash
 path's (6) are those its restarted server process reports.  Each path must
 have launched the kernels it runs.  The second-to-last line is a JSON
 summary of the kernels, an entry per summary case: "launches" is the main
-path's count (the graph path's for the pool cases), "paths" each path's
-own.  The last line is {"ok": true, "device": {...}}.  Data comes from
+path's count (the graph path's for the build's pool cases, the writes
+path's for the waves'), "paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
 numpy with a fixed seed.
 """
 
@@ -129,6 +151,20 @@ GRAPH_POOL_B, GRAPH_POOL_K = 4096, 256  # the build's layer-0 pools
 # (seed 100, P(level >= 1) = 1/16), a sub-arena rounded up to 65,536, pools
 # of 4M = 64.
 UPPER_CAP, UPPER_ROWS, UPPER_K = 1 << 16, 62_165, 64
+FLUSH = 4096  # the server's MultiSet flush size
+CARD = "cuda"  # the device of phases 8 and 9
+# Phase 9, writes into the phase-8 graph: 24 in-process multisets of FLUSH
+# rows, 5 wire flushes, 10,000 deletes, a refine of 8,192 rows, one more
+# wave after a save.  Each multiset of FLUSH rows is one wave.
+WAVE_ROWS, WIRE_WAVE_ROWS = 24 * FLUSH, 5 * FLUSH
+WAVE_POOL_K = 200  # ef0 = min(max(efC, 16), 1024)
+# The last wave's layer-0 pool scans the arena's live prefix (its
+# high-water mark), and its layer-1 pool the layer's 69,415 members: the
+# 62,165 of the build and those of the first 114,688 level draws of the
+# reopened index (a fresh generator, seed 100; P(level >= 1) = 1/16).
+WAVE_HI = ROWS + WAVE_ROWS + WIRE_WAVE_ROWS - FLUSH
+WAVE_UPPER = 69_415
+DELETES, REFINE_ROWS, SELF_QUERIES, SELF_RATE = 10_000, 8_192, 1_024, 0.99
 # (kernel, metric, B, k, exact, capacity, live rows) compared with its plain
 # version, at every shape a path gives it; exact is K1's operand precision
 # (None for K2, which is always bf16).
@@ -136,6 +172,10 @@ KERNEL_CASES = (
     ("fused_topk_search", "l2", GRAPH_POOL_B, GRAPH_POOL_K, False, CAP, ROWS),  # graph
     ("fused_topk_search", "l2", GRAPH_POOL_B, UPPER_K, False, UPPER_CAP, UPPER_ROWS),
     ("fused_topk_search", "l2", GRAPH_QUERIES, GRAPH_K, True, CAP, ROWS),  # graph oracle
+    ("fused_topk_search", "l2", FLUSH, WAVE_POOL_K, False, WAVE_HI, WAVE_HI),  # writes
+    ("fused_topk_search", "l2", FLUSH, UPPER_K, False, WAVE_UPPER, WAVE_UPPER),
+    ("fused_topk_search", "l2", FLUSH, GRAPH_POOL_K, False, WAVE_HI + FLUSH,  # refine
+     WAVE_HI + FLUSH - DELETES),
     ("fused_topk_search", "l2", 1024, 16, True, CAP, ROWS),
     ("fused_topk_search", "cosine", 1024, 16, True, CAP, ROWS),
     ("fused_topk_search", "cosine", 1024, 16, False, CAP, ROWS),
@@ -166,8 +206,13 @@ SUMMARY = {
     ("l2", GRAPH_POOL_B, GRAPH_POOL_K, False, CAP): ("fused_topk_search", "graph pool"),
     ("l2", GRAPH_POOL_B, UPPER_K, False, UPPER_CAP): ("fused_topk_search",
                                                        "graph upper-layer pool"),
+    ("l2", FLUSH, WAVE_POOL_K, False, WAVE_HI): ("fused_topk_search", "wave pool"),
+    ("l2", FLUSH, UPPER_K, False, WAVE_UPPER): ("fused_topk_search",
+                                                "wave upper-layer pool"),
 }
-FLUSH = 4096  # the server's MultiSet flush size
+# the path whose launches a summary case reports
+CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "graph",
+             "wave pool": "writes", "wave upper-layer pool": "writes"}
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
 
@@ -321,8 +366,12 @@ def phase_kernels(torch, x_host, report):
     rng = np.random.default_rng(SEED + 1)
     q_all = torch.from_numpy(rng.standard_normal(
         (max(c[2] for c in KERNEL_CASES), DIMS), dtype=np.float32)).cuda()
-    raw = torch.zeros((CAP, DIMS), dtype=torch.float32, device="cuda")
+    # past ROWS (the wave cases' grown arena): more rows of the same draw
+    raw = torch.zeros((max(CAP, max(c[5] for c in KERNEL_CASES)), DIMS),
+                      dtype=torch.float32, device="cuda")
     raw[:ROWS] = torch.from_numpy(x_host).cuda()
+    raw[ROWS:] = torch.from_numpy(rng.standard_normal(
+        (raw.shape[0] - ROWS, DIMS), dtype=np.float32)).cuda()
     for metric in ("l2", "cosine"):
         x_full = D.preprocess_vectors(raw, metric)
         xb_full = F.arena_bf16(x_full)
@@ -758,37 +807,60 @@ def phase_offline(torch, x_host):
     torch.cuda.empty_cache()
 
 
-def sift_proxy(n: int, nq: int, dims: int):
-    """SIFT-descriptor-statistics rows ``[n, dims]`` and queries ``[nq,
-    dims]``, integer-valued f32: a numpy copy of ``sift_desc_chunked`` in
-    benchmarks/cluster_build.py:40-76 (the same draws, chunk by chunk, from
-    rng seeds 0 and 1), which imports the JAX package's benchmarks."""
+def sift_desc(count: int, r):
+    """``count`` SIFT-descriptor-statistics rows of 128 integer-valued f32
+    from generator ``r``: a numpy copy of ``sample_desc`` in
+    benchmarks/cluster_build.py:40-76, which imports the JAX package's
+    benchmarks."""
+    base_ori = r.uniform(0, 8, size=(count, 1, 1))
+    drift = r.normal(0, 1.2, size=(count, 4, 4)).cumsum(2)
+    ori = (base_ori + drift) % 8
+    bins = np.arange(8)[None, None, None, :]
+    ang = np.minimum(np.abs(bins - ori[..., None]), 8 - np.abs(bins - ori[..., None]))
+    resp = np.exp(-(ang ** 2) / (2 * 1.1 ** 2))
+    energy = r.gamma(2.0, 1.0, size=(count, 4, 4, 1))
+    noise = r.gamma(1.0, 0.25, size=(count, 4, 4, 8))
+    d = (resp * energy + noise).reshape(count, 128)
+    d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-12
+    d = np.minimum(d, 0.2)
+    d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-12
+    return np.floor(512.0 * d).astype(np.float32)
+
+
+def sift_rows(n: int, seed: int) -> np.ndarray:
+    """``n`` rows of :func:`sift_desc` from rng ``seed``, drawn chunk by chunk
+    as ``sift_desc_chunked`` draws them."""
     chunk = 1 << 18
-    rng = np.random.default_rng(0)
-    qrng = np.random.default_rng(1)
-
-    def sample_desc(count, r):
-        base_ori = r.uniform(0, 8, size=(count, 1, 1))
-        drift = r.normal(0, 1.2, size=(count, 4, 4)).cumsum(2)
-        ori = (base_ori + drift) % 8
-        bins = np.arange(8)[None, None, None, :]
-        ang = np.minimum(np.abs(bins - ori[..., None]), 8 - np.abs(bins - ori[..., None]))
-        resp = np.exp(-(ang ** 2) / (2 * 1.1 ** 2))
-        energy = r.gamma(2.0, 1.0, size=(count, 4, 4, 1))
-        noise = r.gamma(1.0, 0.25, size=(count, 4, 4, 8))
-        d = (resp * energy + noise).reshape(count, 128)
-        d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-12
-        d = np.minimum(d, 0.2)
-        d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-12
-        return np.floor(512.0 * d).astype(np.float32)
-
-    train = np.empty((n, dims), np.float32)
+    rng = np.random.default_rng(seed)
+    out = np.empty((n, DIMS), np.float32)
     for done in range(0, n, chunk):
-        train[done:done + chunk] = sample_desc(min(chunk, n - done), rng)
-    return train, sample_desc(nq, qrng)
+        out[done:done + chunk] = sift_desc(min(chunk, n - done), rng)
+    return out
 
 
-def phase_graph(torch, launches, wire):
+def sift_proxy(n: int, nq: int, dims: int):
+    """SIFT-proxy rows ``[n, dims]`` (rng seed 0) and queries ``[nq, dims]``
+    (rng seed 1), as benchmarks/cluster_build.py draws them."""
+    return sift_rows(n, 0), sift_desc(nq, np.random.default_rng(1))
+
+
+def graph_walk(torch, index, test, oracle, ef, what, tag="graph"):
+    """Recall@10 of ``index.search`` at ``ef`` against ``oracle`` rows,
+    device ms per batch (CUDA events, median of 5 after 2 warm-ups) and
+    the beam's hops."""
+    _, ids = index.search(test, GRAPH_K, ef=ef)
+    recall = np.mean([len(set(a) & set(b)) / GRAPH_K for a, b in zip(ids, oracle)])
+    ms = device_ms(torch, lambda: index.search(test, GRAPH_K, ef=ef))
+    hops = index.last_hops
+    print(f"[{tag}] search {what} B={len(test)} k={GRAPH_K} ef={ef}: "
+          f"recall@{GRAPH_K} {recall:.4f}; {ms:.3f} ms per batch, "
+          f"{hops} hops, {ms / hops:.3f} ms per hop", flush=True)
+    return recall
+
+
+def phase_graph(torch, launches, wire, base):
+    """Phase 8.  Returns what phase 9 writes into: the reopened store (behind
+    the gRPC server when grpc is installed), the rows and the queries."""
     from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
     from embeddinghub_tpu_torch.ops import distance as D
     from embeddinghub_tpu_torch.ops import fused_topk as F
@@ -801,111 +873,346 @@ def phase_graph(torch, launches, wire):
           f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
     keys = [f"g{j}" for j in range(ROWS)]
     config = Config(engine="hnsw", hnsw_m=GRAPH_M, hnsw_ef_construction=GRAPH_EFC)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
-        base = Path(tmp) / "store"
-        hub = EmbeddingHub.load_or_create(base, engine="hnsw", device="cuda")
-        version = hub.create_space("graph", DIMS, "l2").default_version()
-        index = version.index
-        check(isinstance(index, HNSWIndex) and (index.m, index.ef_construction)
-              == (GRAPH_M, GRAPH_EFC), "engine=hnsw did not give an M=16 efC=200 graph")
-        before = launches["fused_topk_search"]
+    hub = EmbeddingHub.load_or_create(base, engine="hnsw", device=CARD)
+    version = hub.create_space("graph", DIMS, "l2").default_version()
+    index = version.index
+    check(isinstance(index, HNSWIndex) and (index.m, index.ef_construction)
+          == (GRAPH_M, GRAPH_EFC), "engine=hnsw did not give an M=16 efC=200 graph")
+    before = launches["fused_topk_search"]
+    t0 = time.perf_counter()
+    version.multiset(zip(keys, train))
+    ingest_s = time.perf_counter() - t0
+    built = launches["fused_topk_search"] - before
+    check(built > 0, "the bulk build did not launch K1")
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in index.build_seconds.items())
+    print(f"[graph] multiset {ROWS} rows, WAL on, one exact bulk build: "
+          f"{ingest_s:.2f} s; build {sum(index.build_seconds.values()):.2f} s "
+          f"({parts}); K1 launched {built} times; levels up to "
+          f"{index._max_level}", flush=True)
+
+    x_dev = torch.from_numpy(train).to(CARD)
+    q_dev = torch.from_numpy(test).to(CARD)
+    valid = torch.ones(ROWS, dtype=torch.bool, device=CARD)
+    _, oracle = F.exact_topk(q_dev, x_dev, valid, D.sqnorms(x_dev), k=GRAPH_K,
+                             metric="l2", exact=True)
+    oracle = oracle.cpu().numpy()
+    del x_dev, q_dev, valid
+
+    recalls = {ef: graph_walk(torch, index, test, oracle, ef, "bf16 walk")
+               for ef in GRAPH_EFS}
+    check(recalls[100] >= GRAPH_RECALL,
+          f"recall@10 at ef=100 {recalls[100]} < {GRAPH_RECALL}")
+    t0 = time.perf_counter()
+    index.pack_walk()
+    torch.cuda.synchronize()
+    print(f"[graph] pack_walk: {time.perf_counter() - t0:.2f} s", flush=True)
+    graph_walk(torch, index, test, oracle, 100, "packed walk")
+    index.walk_packed = False
+
+    want = version.nearest_batch(test, GRAPH_K)
+    singles = [version.nearest(GRAPH_K, vector=test[j]) for j in range(8)]
+    t0 = time.perf_counter()
+    hub.save()
+    save_s = time.perf_counter() - t0
+    del hub, version, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[graph] save: {save_s:.2f} s; snapshot "
+          f"{dir_bytes(base / 'graph' / 'initial')} bytes", flush=True)
+    ctx = {"train": train, "test": test, "base": base, "wire": None}
+    if not wire:
+        hub = EmbeddingHub.load_or_create(base, engine="hnsw", device=CARD)
+        check(hub.get_version("graph").nearest_batch(test, GRAPH_K) == want,
+              "nearest_batch after the reopen differs")
+        print("[graph] over the wire: not run (grpc is not installed); "
+              "reopened from the snapshot, nearest_batch lists equal", flush=True)
+        ctx["hub"] = hub
+        return ctx
+    import grpc
+
+    from embeddinghub_tpu_torch.service.server import build_server, pb, pb_grpc
+
+    t0 = time.perf_counter()
+    server, service, port = build_server("127.0.0.1:0", CARD, data_dir=str(base),
+                                         config=config)
+    reopen_s = time.perf_counter() - t0
+    server.start()
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    ctx["hub"], ctx["wire"] = service._store, (server, service, channel)
+    version = service._store.get_version("graph")
+    check(isinstance(version.index, HNSWIndex) and version.size == ROWS,
+          "the reopened store holds no 1M-row graph")
+    check(version.nearest_batch(test, GRAPH_K) == want,
+          "nearest_batch after the reopen differs")
+    stub = pb_grpc.EmbeddingHubStub(channel)
+    req = pb.BatchNearestNeighborRequest(space="graph", num=GRAPH_K)
+    for qv in test:
+        req.embeddings.add().values[:] = qv.tolist()
+    resp = stub.BatchNearestNeighbor(req)
+    check([list(r.keys) for r in resp.results] == want,
+          "BatchNearestNeighbor differs from the store before the save")
+    for j, keys_j in enumerate(singles):
+        resp = stub.NearestNeighbor(pb.NearestNeighborRequest(
+            space="graph", embedding=pb.Embedding(values=test[j].tolist()),
+            num=GRAPH_K))
+        check(list(resp.keys) == keys_j,
+              "NearestNeighbor differs from the store before the save")
+    print(f"[graph] reopened from the snapshot in process ({reopen_s:.2f} s): "
+          f"nearest_batch, BatchNearestNeighbor (B={GRAPH_QUERIES}) and "
+          f"NearestNeighbor (8 queries) equal the lists before the save",
+          flush=True)
+    return ctx
+
+
+def close_graph(torch, ctx) -> None:
+    """Stops phase 8's server, if it runs, and drops its store."""
+    if ctx.get("wire"):
+        server, service, channel = ctx["wire"]
+        channel.close()
+        server.stop(0).wait()
+        service.stop()
+    ctx.pop("wire", None)
+    ctx.pop("hub", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class Rows:
+    """What phase 9 has written: every key, its vector and whether it is
+    live, for the oracle over the live rows and the reopen's checks."""
+
+    def __init__(self, keys, vecs):
+        self.keys, self.vecs = list(keys), [vecs]
+        self.live = dict.fromkeys(self.keys, True)
+        self.at = {k: j for j, k in enumerate(self.keys)}
+
+    def add(self, keys, vecs):
+        for k in keys:
+            self.at[k] = len(self.keys)
+            self.keys.append(k)
+            self.live[k] = True
+        self.vecs.append(vecs)
+
+    def matrix(self):
+        if len(self.vecs) > 1:
+            self.vecs = [np.concatenate(self.vecs)]
+        return self.vecs[0]
+
+    def vector(self, key):
+        return self.matrix()[self.at[key]]
+
+    def oracle(self, torch, version, queries, k=GRAPH_K):
+        """Exact top-k rows of the version over its live keys, from K1 with
+        f32 operands on an arena built from what was written."""
+        from embeddinghub_tpu_torch.ops import distance as D
+        from embeddinghub_tpu_torch.ops import fused_topk as F
+
+        live = [key for key, ok in self.live.items() if ok]
+        rows = np.fromiter((version.keymap.row(key) for key in live), np.int64, len(live))
+        x = torch.zeros((int(rows.max()) + 1, DIMS), dtype=torch.float32, device=CARD)
+        x[torch.from_numpy(rows).to(CARD)] = torch.from_numpy(
+            self.matrix()[[self.at[key] for key in live]]).to(CARD)
+        valid = torch.zeros(x.shape[0], dtype=torch.bool, device=CARD)
+        valid[torch.from_numpy(rows).to(CARD)] = True
+        _, ids = F.exact_topk(torch.from_numpy(queries).to(CARD), x, valid,
+                              D.sqnorms(x), k=k, metric="l2", exact=True)
+        return ids.cpu().numpy()
+
+
+def phase_writes(torch, launches, ctx):
+    """Phase 9: writes into the reopened 1M-row graph of phase 8."""
+    from embeddinghub_tpu_torch.index.hnsw import WAVE_SECONDS
+    from embeddinghub_tpu_torch.store.hub import EmbeddingHub
+
+    test = ctx["test"]
+    version = ctx["hub"].get_version("graph")
+    index = version.index
+    t_phase = t0 = time.perf_counter()
+    new = sift_rows(WAVE_ROWS + WIRE_WAVE_ROWS + FLUSH, 2)
+    new_keys = [f"w{j}" for j in range(len(new))]
+    print(f"[writes] {len(new)} new SIFT-proxy rows (rng seed 2): "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+    rows = Rows((f"g{j}" for j in range(ROWS)), ctx["train"])
+
+    # 1. in process: one wave a multiset
+    per_wave, parts, special = [], dict.fromkeys(WAVE_SECONDS, 0.0), []
+    k1 = launches["fused_topk_search"]
+    waves0 = index.waves
+    t_all = time.perf_counter()
+    for b in range(WAVE_ROWS // FLUSH):
+        s = b * FLUSH
+        cap0, fresh = index._cap, index._device_state is None
         t0 = time.perf_counter()
-        version.multiset(zip(keys, train))
-        ingest_s = time.perf_counter() - t0
-        built = launches["fused_topk_search"] - before
-        check(built > 0, "the bulk build did not launch K1")
-        parts = ", ".join(f"{k} {v:.2f}" for k, v in index.build_seconds.items())
-        print(f"[graph] multiset {ROWS} rows, WAL on, one exact bulk build: "
-              f"{ingest_s:.2f} s; build {sum(index.build_seconds.values()):.2f} s "
-              f"({parts}); K1 launched {built} times; levels up to "
-              f"{index._max_level}", flush=True)
-
-        x_dev = torch.from_numpy(train).cuda()
-        q_dev = torch.from_numpy(test).cuda()
-        valid = torch.ones(ROWS, dtype=torch.bool, device="cuda")
-        _, oracle = F.exact_topk(q_dev, x_dev, valid, D.sqnorms(x_dev), k=GRAPH_K,
-                                 metric="l2", exact=True)
-        oracle = oracle.cpu().numpy()
-        del x_dev, q_dev, valid
-
-        def walk(ef, what):
-            _, ids = index.search(test, GRAPH_K, ef=ef)
-            recall = np.mean([len(set(a) & set(b)) / GRAPH_K
-                              for a, b in zip(ids, oracle)])
-            ms = device_ms(torch, lambda: index.search(test, GRAPH_K, ef=ef))
-            hops = index.last_hops
-            print(f"[graph] search {what} B={GRAPH_QUERIES} k={GRAPH_K} ef={ef}: "
-                  f"recall@{GRAPH_K} {recall:.4f}; {ms:.3f} ms per batch, "
-                  f"{hops} hops, {ms / hops:.3f} ms per hop", flush=True)
-            return recall
-
-        recalls = {ef: walk(ef, "bf16 walk") for ef in GRAPH_EFS}
-        check(recalls[100] >= GRAPH_RECALL,
-              f"recall@10 at ef=100 {recalls[100]} < {GRAPH_RECALL}")
-        t0 = time.perf_counter()
-        index.pack_walk()
+        version.multiset(zip(new_keys[s:s + FLUSH], new[s:s + FLUSH]))
         torch.cuda.synchronize()
-        print(f"[graph] pack_walk: {time.perf_counter() - t0:.2f} s", flush=True)
-        walk(100, "packed walk")
-        index.walk_packed = False
+        dt = time.perf_counter() - t0
+        seconds = dict(index.wave_seconds)
+        if fresh or index._cap != cap0:
+            special.append((b, dt, seconds, cap0, index._cap, fresh))
+        else:
+            per_wave.append(dt)
+            for key, v in seconds.items():
+                parts[key] += v
+    in_s = time.perf_counter() - t_all
+    rows.add(new_keys[:WAVE_ROWS], new[:WAVE_ROWS])
+    k1_waves = launches["fused_topk_search"] - k1
+    check(index.waves - waves0 == WAVE_ROWS // FLUSH, "a multiset was not one wave")
+    check(k1_waves > 0, "the waves did not launch K1")
+    check(version.size == ROWS + WAVE_ROWS and index._cap == 2 * CAP,
+          f"size {version.size} capacity {index._cap}")
+    n = len(per_wave)
+    print(f"[writes] {WAVE_ROWS // FLUSH} multisets of {FLUSH} rows in process "
+          f"(one wave each): {in_s:.2f} s, {WAVE_ROWS / in_s:.0f} rows/s; K1 "
+          f"launched {k1_waves} times; median {statistics.median(per_wave) * 1e3:.1f} "
+          f"ms a multiset over the {n} waves without a rebuild", flush=True)
+    print(f"[writes] wave parts, mean ms a wave over those {n}: " + ", ".join(
+        f"{key} {v / n * 1e3:.2f}" for key, v in parts.items())
+        + f"; store (keys, WAL) "
+        f"{(sum(per_wave) - sum(parts.values())) / n * 1e3:.2f}", flush=True)
+    for b, dt, seconds, cap0, cap1, fresh in special:
+        what = ("the first wave after the reopen: the device state built whole"
+                if fresh else f"the capacity growth {cap0} -> {cap1}: the device "
+                "state rebuilt whole")
+        print(f"[writes] multiset {b + 1}, {what}: {dt * 1e3:.1f} ms, of which "
+              f"rebuild {seconds['rebuild'] * 1e3:.1f} ms, pool0 "
+              f"{seconds['pool0'] * 1e3:.1f} ms", flush=True)
 
-        want = version.nearest_batch(test, GRAPH_K)
-        singles = [version.nearest(GRAPH_K, vector=test[j]) for j in range(8)]
+    # 2. over the wire: 5 flushes, 5 waves
+    s = WAVE_ROWS
+    wire_keys = new_keys[s:s + WIRE_WAVE_ROWS]
+    if ctx.get("wire"):
+        from embeddinghub_tpu_torch.service.server import pb, pb_grpc
+
+        stub = pb_grpc.EmbeddingHubStub(ctx["wire"][2])
+
+        def requests():
+            for j in range(WIRE_WAVE_ROWS):
+                req = pb.MultiSetRequest(space="graph", key=wire_keys[j])
+                req.embedding.values[:] = new[s + j].tolist()
+                yield req
+
+        waves0 = index.waves
         t0 = time.perf_counter()
-        hub.save()
-        save_s = time.perf_counter() - t0
-        del hub, version, index
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"[graph] save: {save_s:.2f} s; snapshot "
-              f"{dir_bytes(base / 'graph' / 'initial')} bytes", flush=True)
-        if not wire:
-            again = EmbeddingHub.load_or_create(base, engine="hnsw", device="cuda")
-            check(again.get_version("graph").nearest_batch(test, GRAPH_K) == want,
-                  "nearest_batch after the reopen differs")
-            print("[graph] over the wire: not run (grpc is not installed); "
-                  "reopened from the snapshot, nearest_batch lists equal", flush=True)
-            return
-        import grpc
+        stub.MultiSet(requests())
+        wire_s = time.perf_counter() - t0
+        check(index.waves - waves0 == WIRE_WAVE_ROWS // FLUSH,
+              f"wire MultiSet made {index.waves - waves0} waves")
+        print(f"[writes] raw-stub MultiSet of {WIRE_WAVE_ROWS} rows "
+              f"({WIRE_WAVE_ROWS // FLUSH} flushes, one wave each): {wire_s:.2f} s, "
+              f"{WIRE_WAVE_ROWS / wire_s:.0f} rows/s", flush=True)
+    else:
+        for j in range(0, WIRE_WAVE_ROWS, FLUSH):
+            version.multiset(zip(wire_keys[j:j + FLUSH], new[s + j:s + j + FLUSH]))
+        print("[writes] over the wire: not run (grpc is not installed); the same "
+              f"{WIRE_WAVE_ROWS} rows by multiset", flush=True)
+    rows.add(wire_keys, new[s:s + WIRE_WAVE_ROWS])
+    check(version.size == ROWS + WAVE_ROWS + WIRE_WAVE_ROWS, f"size {version.size}")
+    # the last wave pooled layer 1 over the members of the rows before it
+    upper = int(np.count_nonzero(index._levels[:WAVE_HI] >= 1))
+    check(upper == WAVE_UPPER, f"layer-1 members at the last wave: {upper}")
 
-        from embeddinghub_tpu_torch.service.server import build_server, pb, pb_grpc
+    # 3. recall against an exact oracle over every live row; new rows
+    # find themselves
+    oracle = rows.oracle(torch, version, test)
+    recalls = {ef: graph_walk(torch, index, test, oracle, ef, "after the inserts",
+                              "writes") for ef in GRAPH_EFS}
+    check(recalls[100] >= GRAPH_RECALL,
+          f"recall@10 at ef=100 after the inserts {recalls[100]} < {GRAPH_RECALL}")
+    pick = np.linspace(0, WAVE_ROWS + WIRE_WAVE_ROWS - 1, SELF_QUERIES).astype(np.int64)
+    want_rows = np.asarray([version.keymap.row(new_keys[j]) for j in pick])
+    _, ids = index.search(new[pick], GRAPH_K, ef=100)
+    self_rate = float(np.mean([r in got for r, got in zip(want_rows, ids)]))
+    print(f"[writes] self-check: {SELF_QUERIES} inserted rows queried by their own "
+          f"vectors at ef=100 find themselves in their top {GRAPH_K}: {self_rate:.4f}",
+          flush=True)
+    check(self_rate >= SELF_RATE, f"self-check {self_rate} < {SELF_RATE}")
 
-        t0 = time.perf_counter()
-        server, service, port = build_server("127.0.0.1:0", "cuda", data_dir=str(base),
-                                             config=config)
-        reopen_s = time.perf_counter() - t0
-        server.start()
-        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
-        try:
-            version = service._store.get_version("graph")
-            check(isinstance(version.index, HNSWIndex) and version.size == ROWS,
-                  "the reopened store holds no 1M-row graph")
-            check(version.nearest_batch(test, GRAPH_K) == want,
-                  "nearest_batch after the reopen differs")
-            stub = pb_grpc.EmbeddingHubStub(channel)
-            req = pb.BatchNearestNeighborRequest(space="graph", num=GRAPH_K)
-            for qv in test:
-                req.embeddings.add().values[:] = qv.tolist()
-            resp = stub.BatchNearestNeighbor(req)
-            check([list(r.keys) for r in resp.results] == want,
-                  "BatchNearestNeighbor differs from the store before the save")
-            for j, keys_j in enumerate(singles):
-                resp = stub.NearestNeighbor(pb.NearestNeighborRequest(
-                    space="graph", embedding=pb.Embedding(values=test[j].tolist()),
-                    num=GRAPH_K))
-                check(list(resp.keys) == keys_j,
-                      "NearestNeighbor differs from the store before the save")
-        finally:
-            channel.close()
-            server.stop(0).wait()
-            service.stop()
-        print(f"[graph] reopened from the snapshot in process ({reopen_s:.2f} s): "
-              f"nearest_batch, BatchNearestNeighbor (B={GRAPH_QUERIES}) and "
-              f"NearestNeighbor (8 queries) equal the lists before the save",
-              flush=True)
-        del service, server
-        gc.collect()
-        torch.cuda.empty_cache()
+    # 4. deletes: half old rows, half new
+    gone = ([f"g{j}" for j in range(0, ROWS, 2 * ROWS // DELETES)][:DELETES // 2]
+            + [new_keys[j] for j in range(0, WAVE_ROWS + WIRE_WAVE_ROWS,
+                                          (WAVE_ROWS + WIRE_WAVE_ROWS) * 2 // DELETES)
+               ][:DELETES // 2])
+    check(len(set(gone)) == DELETES, "delete keys")
+    gone_rows = np.asarray([version.keymap.row(k) for k in gone])
+    t0 = time.perf_counter()
+    version.delete(gone[0])
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for key in gone[1:]:
+        version.delete(key)
+    rest_s = time.perf_counter() - t0
+    for key in gone:
+        rows.live[key] = False
+    lists = version.nearest_batch(test, GRAPH_K)
+    gone_set = set(gone)
+    check(not any(k in gone_set for r in lists for k in r), "a deleted key came back")
+    _, ids = index.search(rows.matrix()[[rows.at[k] for k in gone[::10]]], GRAPH_K,
+                          ef=100)
+    check(not np.isin(ids, gone_rows).any(), "a deleted row came back")
+    print(f"[writes] {DELETES} deletes ({DELETES // 2} old rows, {DELETES // 2} new): "
+          f"the first {first_s * 1e3:.1f} ms (it pulls the graph down to the host), "
+          f"the other {DELETES - 1} {rest_s:.2f} s, {(DELETES - 1) / rest_s:.0f} "
+          f"deletes/s; no deleted key in any list", flush=True)
+    oracle = rows.oracle(torch, version, test)
+    after_delete = graph_walk(torch, index, test, oracle, 100, "after the deletes",
+                              "writes")
+    check(after_delete >= GRAPH_RECALL,
+          f"recall@10 at ef=100 after the deletes {after_delete} < {GRAPH_RECALL}")
+
+    # 5. refine 8,192 inserted rows
+    ref_rows = np.asarray([version.keymap.row(new_keys[j])
+                           for j in range(0, WAVE_ROWS, 2)
+                           if rows.live[new_keys[j]]][:REFINE_ROWS])
+    k1 = launches["fused_topk_search"]
+    t0 = time.perf_counter()
+    with version.lock:
+        index.refine(ref_rows)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    check(launches["fused_topk_search"] > k1, "refine did not launch K1")
+    print(f"[writes] refine of {len(ref_rows)} inserted rows: {refine_s:.2f} s, K1 "
+          f"launched {launches['fused_topk_search'] - k1} times", flush=True)
+    refined = graph_walk(torch, index, test, oracle, 100, "after the refine", "writes")
+    check(refined >= after_delete - 0.005,
+          f"recall@10 at ef=100 fell from {after_delete} to {refined} in the refine")
+
+    # 6. save; then a wave and 100 deletes unsaved; reopen from snapshot + WAL
+    t0 = time.perf_counter()
+    ctx["hub"].save()
+    save_s = time.perf_counter() - t0
+    s = WAVE_ROWS + WIRE_WAVE_ROWS
+    version.multiset(zip(new_keys[s:], new[s:]))
+    rows.add(new_keys[s:], new[s:])
+    late_gone = [f"g{j}" for j in range(1, 200, 2)]
+    for key in late_gone:
+        version.delete(key)
+        rows.live[key] = False
+    n_live = sum(rows.live.values())
+    check(version.size == n_live, f"size {version.size} != {n_live}")
+    del version, index
+    close_graph(torch, ctx)
+    t0 = time.perf_counter()
+    hub = EmbeddingHub.load_or_create(ctx["base"], engine="hnsw", device=CARD)
+    reopen_s = time.perf_counter() - t0
+    version = hub.get_version("graph")
+    check(version.size == n_live, f"reopened size {version.size} != {n_live}")
+    live = [k for k, ok in rows.live.items() if ok]
+    got = np.stack(version.multiget(live))
+    check(np.array_equal(got, rows.matrix()[[rows.at[k] for k in live]]),
+          "an acknowledged key is not bit-exact after the reopen")
+    check(not any(k in version for k in gone + late_gone), "a deleted key is back")
+    oracle = rows.oracle(torch, version, test)
+    reopened = graph_walk(torch, version.index, test, oracle, 100,
+                          "after the reopen", "writes")
+    check(reopened >= GRAPH_RECALL,
+          f"recall@10 at ef=100 after the reopen {reopened} < {GRAPH_RECALL}")
+    print(f"[writes] save {save_s:.2f} s; then {FLUSH} rows and {len(late_gone)} "
+          f"deletes unsaved; reopen from snapshot + WAL {reopen_s:.2f} s: all "
+          f"{n_live} acknowledged keys bit-exact (Get), no deleted key", flush=True)
+    print(f"[writes] phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del hub, version
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -946,13 +1253,26 @@ def main() -> int:
              "restore": tuple(F.LAUNCHES),
              "offline": ("fused_topk_search_v2",),
              "graph": ("fused_topk_search",),
+             "writes": ("fused_topk_search",),
              "crash": ("fused_topk_search",)}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
-                      ("offline", lambda: phase_offline(torch, x_host)),
-                      ("graph", lambda: phase_graph(torch, F.LAUNCHES, wire))):
+                      ("offline", lambda: phase_offline(torch, x_host))):
         F.reset_launches()
         run()
         paths[path] = dict(F.LAUNCHES)
+    # the graph path builds and saves the graph (phase 8) and the writes path
+    # writes into it after a reopen (phase 9)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        ctx = {}
+        try:
+            F.reset_launches()
+            ctx = phase_graph(torch, F.LAUNCHES, wire, Path(tmp) / "store")
+            paths["graph"] = dict(F.LAUNCHES)
+            F.reset_launches()
+            phase_writes(torch, F.LAUNCHES, ctx)
+            paths["writes"] = dict(F.LAUNCHES)
+        finally:
+            close_graph(torch, ctx)
     # the crash path's kernels run in the server subprocess, which reports them
     crash = phase_crash(torch, x_host)
     if crash is not None:
@@ -969,12 +1289,13 @@ def main() -> int:
                "fused_topk_search_v2": "embeddinghub_tpu_torch/csrc/k2_scan.cu",
                "fused_topk_search_large_k": "embeddinghub_tpu_torch/csrc/k1_scan.cu"}
     # An entry per summary case.  launches: the count of the path the case
-    # belongs to (the main path's; the graph path's for the pool shapes);
+    # belongs to (CASE_PATH: the main path's; the graph path's for the
+    # build's pool shapes, the writes path's for the waves');
     # paths: each path's own.  A main entry's max_abs_err is its kernel's
     # largest over every case.
     entries = []
     for name, label in SUMMARY.values():
-        path = "main" if label == "main" else "graph"
+        path = CASE_PATH[label]
         numbers = dict(report[(name, label)])
         if label == "main":
             numbers["max_abs_err"] = report[name]["max_abs_err"]

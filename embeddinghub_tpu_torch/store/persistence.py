@@ -17,11 +17,14 @@ WAL record format (little-endian):
     freeze: (nothing)
 
 Replay applies runs of consecutive ``set`` records as one batched
-``multiset`` (:func:`_replay_into`); the result is exactly that of applying
-them one by one, as the reference does.  A graph index takes a run whole:
-its one cold add is the bulk build of the rows that were written, and a
-replay that needs a second add raises the graph index's
-``NotImplementedError`` rather than build a different graph.
+``multiset`` (:func:`_replay_into`).  For a flat index the result is
+exactly that of applying them one by one, as the reference does.  A graph
+index takes each run whole: a run into an empty graph is the bulk build of
+the rows that were written, a run into a built graph goes in by waves.  A
+graph replayed so is not the graph that record-by-record replay would give
+(the reference's, whose graph is not its own build's either): the contract
+is that every acknowledged write comes back and recall holds.  A reopen
+from a snapshot alone gives the saved graph exactly.
 """
 
 from __future__ import annotations
@@ -230,8 +233,9 @@ def _replay_into(version, wal_path) -> None:
     key takes its row at its first record and keeps its last vector, which
     is what record-by-record replay gives: ``multiset``'s own keep-last
     dedup would order rows by last appearance instead, so the run is
-    deduplicated here first.  A graph index takes each run whole (see the
-    module docstring)."""
+    deduplicated here first.  A graph index takes each run whole, one
+    ``multiset`` (a bulk build into an empty graph, waves into a built one;
+    see the module docstring)."""
     run: dict[str, np.ndarray] = {}  # insertion order = first appearance
     n_run = 0
     batch = None if isinstance(version.index, HNSWIndex) else REPLAY_BATCH

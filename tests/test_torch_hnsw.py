@@ -2,7 +2,8 @@
 inputs (numpy seeds): the build's kernels (``heuristic_prune``,
 ``gather_reciprocal``, ``pooled_topk_ids``), the exact bulk build, search
 over a graph carried across by ``from_state``, snapshots both ways, the
-``hnsw`` store engine and its server, and the paths not ported yet.
+``hnsw`` store engine and its server, and the paths not ported yet
+(``tests/test_torch_hnsw_writes.py`` holds the writes into a built graph).
 
 Tolerances: the prune and the reciprocal gather give identical ids (on
 integer-valued rows, where every f32 product is exact, and on Gaussian
@@ -284,7 +285,8 @@ def test_snapshot_both_ways(builds, tmp_path):
 def test_hub_reopens_graph_from_snapshot_and_wal(tmp_path):
     """``engine="hnsw"``: reopened from its snapshot, and from its WAL
     alone (one run of sets: one bulk build of the same rows), the store
-    gives the lists it gave before; a WAL that needs a second add raises."""
+    gives the lists it gave before; a WAL with a second run of sets after a
+    freeze reopens with that run's rows too (waves into the built graph)."""
     x = _data(8, 2500)
     q = x[:16] + 0.05
     hub = EmbeddingHub.load_or_create(tmp_path / "a", engine="hnsw", device="cpu")
@@ -306,9 +308,16 @@ def test_hub_reopens_graph_from_snapshot_and_wal(tmp_path):
     version = hub.create_space("g", DIM, "l2").default_version()
     _multiset(version, x)
     version.make_immutable()
-    version._wal.append_many(["late"], x[:1])  # a second run of sets
-    with pytest.raises(NotImplementedError, match=ITEM5):
-        EmbeddingHub.load_or_create(tmp_path / "b", engine="hnsw", device="cpu")
+    late = _data(18, 300)
+    version._wal.append_many([f"late{j}" for j in range(300)], late)  # a second run
+    del hub, version
+    v = EmbeddingHub.load_or_create(tmp_path / "b", engine="hnsw", device="cpu").get_version("g")
+    assert v.size == 2800 and v.index.size == 2800 and not v.immutable
+    np.testing.assert_array_equal(v.get("late7"), late[7])
+    np.testing.assert_array_equal(v.get("k7"), x[7])
+    assert "late0" in v.nearest(10, vector=late[0])
+    _, ids = v.index.search(late[:32] + 0.01, 1, ef=64)
+    assert np.mean(ids[:, 0] == [v.keymap.row(f"late{j}") for j in range(32)]) >= 0.95
 
 
 def test_hub_serves_graph_over_grpc():
@@ -351,39 +360,49 @@ def test_hub_serves_graph_over_grpc():
 
 
 def test_item5_paths_raise(builds):
+    """What is still not ported raises and leaves the graph as it was: the
+    route (k-means), a cold add past ``exact_build_max`` (the
+    cluster-routed build) and a hub that asks for seed probes."""
     x, q, _, built = builds["l2"]
-    calls = {
-        "add to a built graph": lambda: built.add(np.arange(5000, 5100), x[:100]),
-        "remove": lambda: built.remove(np.arange(3)),
-        "refine": lambda: built.refine(),
-        "build_route": lambda: built.build_route(4),
-        "small cold add": lambda: HNSWIndex(DIM, device="cpu").add(np.arange(100), x[:100]),
-    }
     big = HNSWIndex(DIM, device="cpu")
     big.exact_build_max = 3000
-    calls["past exact_build_max"] = lambda: big.add(np.arange(4000), x[:4000])
-    # the hub refuses a routed configuration when it starts, not at search
-    calls["hnsw_seed_probes"] = lambda: EmbeddingHub.in_memory(
-        engine="hnsw", device="cpu", config=Config(engine="hnsw", hnsw_seed_probes=4))
+    calls = {
+        "build_route": lambda: built.build_route(4),
+        "past exact_build_max": lambda: big.add(np.arange(4000), x[:4000]),
+        # the hub refuses a routed configuration when it starts, not at search
+        "hnsw_seed_probes": lambda: EmbeddingHub.in_memory(
+            engine="hnsw", device="cpu", config=Config(engine="hnsw", hnsw_seed_probes=4)),
+    }
     for what, call in calls.items():
         with pytest.raises(NotImplementedError, match=ITEM5):
             call()
-    assert big.size == 0 and built.size == 5000
+    assert big.size == 0 and built.size == 5000 and big._graph_size() == 0
 
 
 def test_refused_writes_leave_the_store_unchanged():
+    """A cold multiset past ``exact_build_max`` is refused and leaves no key
+    behind; the writes the store once refused now go through: a first
+    multiset of 10 rows (host waves), more rows into the built graph, a
+    set, a re-set and a delete."""
     hub = EmbeddingHub.in_memory(engine="hnsw", device="cpu")
     version = hub.create_space("g", DIM, "l2").default_version()
+    version.index.exact_build_max = 3000
     with pytest.raises(NotImplementedError, match=ITEM5):
-        _multiset(version, _data(10, 10), prefix="small")
-    assert version.size == 0 and "small3" not in version
+        _multiset(version, _data(10, 3500), prefix="big")
+    assert version.size == 0 and "big3" not in version
+    assert version.keymap.assign("first") == 0
+    version.keymap.release("first")
+    _multiset(version, _data(10, 10), prefix="small")
     _multiset(version, _data(11, 2100))
-    with pytest.raises(NotImplementedError, match=ITEM5):
-        version.set("new", _data(12, 1)[0])
-    with pytest.raises(NotImplementedError, match=ITEM5):
-        version.delete("k3")
-    assert version.size == 2100 and "new" not in version and "k3" in version
-    assert version.keymap.assign("next") == 2100
+    new = _data(12, 2)
+    version.set("new", new[0])
+    version.set("k5", new[1])
+    version.delete("k3")
+    assert version.size == 2110 and version.index.size == 2110
+    assert "new" in version and "k3" not in version and "small3" in version
+    np.testing.assert_array_equal(version.get("k5"), new[1])
+    assert version.nearest(1, vector=new[0]) == ["new"]
+    assert "k3" not in version.nearest(10, vector=_data(11, 4)[3])
 
 
 def test_failed_build_leaves_the_store_unchanged(monkeypatch):
