@@ -33,9 +33,15 @@ Phases, each of which must pass or the script exits non-zero:
    the layer-0 wave pool, k=200 over the arena's live prefix of 1,114,688
    rows (the last wave's high-water mark); the upper wave pool, k=64 over
    the 69,197 rows of layer 1's members; and refine's pools, k=256 over
-   1,118,784 rows of which 1,108,784 are live.  The summary line reports
-   the 1M-row cosine numbers at B=4096 (K1, K2) and B=16 (large k), and
-   the graph build's and the waves' pool cases as entries of their own.
+   1,118,784 rows of which 1,108,784 are live.  Four K1 cases are the
+   cluster-routed build's pools (phase 10), bf16 operands: the routed
+   pool, k=257 over a block's 32,768 gathered candidate rows at B=4096,
+   and at a cluster's remainder blocks (B=1,145 over 20,000 live rows,
+   B=37 over 9,000: the arena's -1 tail is invalid rows); and the boundary
+   repair's, k=256 at B=4096 over the live prefix of 4,000,000 rows.
+   The summary line reports the 1M-row cosine numbers at B=4096 (K1, K2)
+   and B=16 (large k), and the graph builds' and the waves' pool cases as
+   entries of their own.
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -105,14 +111,29 @@ Phases, each of which must pass or the script exits non-zero:
    -> save, then one more wave and 100 deletes unsaved -> the store
    dropped and reopened from snapshot + WAL: every acknowledged key
    bit-exact (Get), no deleted key, recall at ef=100 still 0.95.
+10. The cluster-routed build at 4M x 128: 4,000,000 SIFT-proxy rows (drawn
+   in worker processes, a generator per 2**18-row chunk, seed 10), 1,024
+   queries (seed 11) -> EmbeddingHub.load_or_create(dir, engine="hnsw",
+   device="cuda") -> one Version.multiset of all rows with the WAL on: one
+   cluster-routed build at M=16, efC=200 and the default cluster knobs
+   (k-means of 1,024 clusters, pools over 8 probed clusters, an exact
+   boundary repair of half the rows), its seconds by part, its plan
+   (_cluster_stats), the boundary rows and K1's launches by kind -> an exact
+   top-10 oracle from K1 -> recall@10, ms per batch and hops at ef 50, 100
+   and 200 (at least 0.97 at ef=200 and 0.91 at ef=100) -> build_route(16)
+   and the routed walk at ef=100 (recall no more than 0.01 below the
+   descent's) -> 3 multisets of 4,096 new rows (seed 12), one wave each
+   (rows/s) -> save, reopen from the snapshot: the same routed lists.
 
 The launch counters are zeroed just before each path (main: phases 3-4;
-restore: 5; offline: 7; graph: 8; writes: 9) and read just after it; the crash
+restore: 5; offline: 7; graph: 8; writes: 9; cluster: 10) and read just
+after it; the crash
 path's (6) are those its restarted server process reports.  Each path must
 have launched the kernels it runs.  The second-to-last line is a JSON
 summary of the kernels, an entry per summary case: "launches" is the main
 path's count (the graph path's for the build's pool cases, the writes
-path's for the waves'), "paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
+path's for the waves', the cluster path's for the cluster-routed build's),
+"paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
 numpy with a fixed seed.
 """
 
@@ -165,6 +186,24 @@ WAVE_POOL_K = 200  # ef0 = min(max(efC, 16), 1024)
 WAVE_HI = ROWS + WAVE_ROWS + WIRE_WAVE_ROWS - FLUSH
 WAVE_UPPER = 69_415
 DELETES, REFINE_ROWS, SELF_QUERIES, SELF_RATE = 10_000, 8_192, 1_024, 0.99
+# Phase 10, the cluster-routed build: 4M SIFT-proxy rows (rng seeds 10 for
+# the rows, 11 for the queries, 12 for the waves) in one cold multiset, the
+# default cluster knobs (target 4,096, probes 8, repair 0.5).  Its routed
+# pools: blocks of up to 4,096 rows, K1 for 256 + 1 (the own row goes after)
+# over S = next_pow2(8 * 4096) gathered rows; its boundary repair: refine's
+# pools (k = 256) over the live prefix of every row.
+BIG_ROWS, BIG_WAVES = 4_000_000, 3
+ROUTED_S, ROUTED_K = 8 * 4096, GRAPH_POOL_K + 1
+# A cluster's last block is shorter (clusters of 2,565 to 5,241 rows leave
+# remainders down to a few rows), and most arenas end in -1 padding (rows
+# K1 reads as invalid): a remainder block of 1,145 rows over 20,000 live
+# rows, and one narrower than a 128-query tile over 9,000.
+ROUTED_TAILS = ((1145, 20_000), (37, 9_000))
+# recall@10 bars at ef 200 and 100 (the reference's graph at these knobs and
+# this size reached 0.9740 and 0.9221, benchmarks/RESULTS.md:569-573; the
+# bars allow 0.01 for the sample of queries)
+BIG_RECALL = {200: 0.97, 100: 0.91}
+ROUTE_PROBES = 16
 # (kernel, metric, B, k, exact, capacity, live rows) compared with its plain
 # version, at every shape a path gives it; exact is K1's operand precision
 # (None for K2, which is always bf16).
@@ -176,6 +215,10 @@ KERNEL_CASES = (
     ("fused_topk_search", "l2", FLUSH, UPPER_K, False, WAVE_UPPER, WAVE_UPPER),
     ("fused_topk_search", "l2", FLUSH, GRAPH_POOL_K, False, WAVE_HI + FLUSH,  # refine
      WAVE_HI + FLUSH - DELETES),
+    ("fused_topk_search", "l2", FLUSH, ROUTED_K, False, ROUTED_S, ROUTED_S),  # cluster
+    *(("fused_topk_search", "l2", b, ROUTED_K, False, ROUTED_S, rows)
+      for b, rows in ROUTED_TAILS),
+    ("fused_topk_search", "l2", FLUSH, GRAPH_POOL_K, False, BIG_ROWS, BIG_ROWS),
     ("fused_topk_search", "l2", 1024, 16, True, CAP, ROWS),
     ("fused_topk_search", "cosine", 1024, 16, True, CAP, ROWS),
     ("fused_topk_search", "cosine", 1024, 16, False, CAP, ROWS),
@@ -209,10 +252,14 @@ SUMMARY = {
     ("l2", FLUSH, WAVE_POOL_K, False, WAVE_HI): ("fused_topk_search", "wave pool"),
     ("l2", FLUSH, UPPER_K, False, WAVE_UPPER): ("fused_topk_search",
                                                 "wave upper-layer pool"),
+    ("l2", FLUSH, ROUTED_K, False, ROUTED_S): ("fused_topk_search", "routed pool"),
+    ("l2", FLUSH, GRAPH_POOL_K, False, BIG_ROWS): ("fused_topk_search",
+                                                   "boundary repair pool"),
 }
 # the path whose launches a summary case reports
 CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "graph",
-             "wave pool": "writes", "wave upper-layer pool": "writes"}
+             "wave pool": "writes", "wave upper-layer pool": "writes",
+             "routed pool": "cluster", "boundary repair pool": "cluster"}
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
 
@@ -1215,6 +1262,147 @@ def phase_writes(torch, launches, ctx):
     torch.cuda.empty_cache()
 
 
+def sift_chunk(seed: int, i: int, count: int) -> np.ndarray:
+    """Chunk ``i`` of :func:`sift_rows_parallel`: ``count`` rows of
+    :func:`sift_desc` from the generator ``default_rng([seed, i])``."""
+    return sift_desc(count, np.random.default_rng([seed, i]))
+
+
+def sift_rows_parallel(n: int, seed: int, chunk: int = 1 << 18) -> np.ndarray:
+    """``n`` SIFT-proxy rows drawn chunk by chunk, each chunk from its own
+    generator (``sift_chunk``), in worker processes: the same rows whatever
+    the number of workers.  The workers are stopped before it returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    out = np.empty((n, DIMS), np.float32)
+    starts = range(0, n, chunk)
+    workers = max(1, min(8, os.cpu_count() or 1, len(starts)))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        parts = [ex.submit(sift_chunk, seed, i, min(chunk, n - s))
+                 for i, s in enumerate(starts)]
+        for s, part in zip(starts, parts):
+            out[s:s + chunk] = part.result()
+    return out
+
+
+def phase_cluster(torch, launches, base):
+    """Phase 10: the cluster-routed build of 4M rows through the store, its
+    recall, the route, three waves, a snapshot and a reopen."""
+    from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
+    from embeddinghub_tpu_torch.ops import distance as D
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+    from embeddinghub_tpu_torch.store.hub import EmbeddingHub
+
+    t_phase = t0 = time.perf_counter()
+    train = sift_rows_parallel(BIG_ROWS, 10)
+    test = sift_desc(GRAPH_QUERIES, np.random.default_rng(11))
+    new = sift_rows_parallel(BIG_WAVES * FLUSH, 12)
+    print(f"[cluster] SIFT proxy {BIG_ROWS} x {DIMS}, {GRAPH_QUERIES} queries and "
+          f"{BIG_WAVES * FLUSH} wave rows: {time.perf_counter() - t0:.1f} s on the host",
+          flush=True)
+    hub = EmbeddingHub.load_or_create(base, engine="hnsw", device=CARD)
+    version = hub.create_space("big", DIMS, "l2").default_version()
+    index = version.index
+    check(isinstance(index, HNSWIndex) and (index.m, index.ef_construction,
+                                            index.cluster_target, index.cluster_probes,
+                                            index.cluster_repair_frac)
+          == (GRAPH_M, GRAPH_EFC, 4096, 8, 0.5),
+          "engine=hnsw did not give an M=16 efC=200 graph with the default cluster knobs")
+    check(index.exact_build_max < BIG_ROWS <= index.cluster_build_max,
+          "4M rows do not take the cluster-routed build")
+    keys = [f"b{j}" for j in range(BIG_ROWS)]
+    before = launches["fused_topk_search"]
+    t0 = time.perf_counter()
+    version.multiset(zip(keys, train))
+    ingest_s = time.perf_counter() - t0
+    built = launches["fused_topk_search"] - before
+    check(built > 0, "the cluster-routed build did not launch K1")
+    secs = index.build_seconds
+    check("routed_pools" in secs and "boundary_repair" in secs,
+          f"not the cluster-routed build: {sorted(secs)}")
+    route = index._cluster_route
+    sizes = np.bincount(route["assign"], minlength=route["cent"].shape[0])
+    blocks = int((-(-sizes // 4096)).sum())
+    tails = sizes[sizes % 4096 > 0] % 4096
+    repairs = -(-index.boundary_rows // FLUSH)
+    print(f"[cluster] multiset {BIG_ROWS} rows, WAL on, one cluster-routed build: "
+          f"{ingest_s:.2f} s; build {sum(secs.values()):.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"); levels up to {index._max_level}", flush=True)
+    print(f"[cluster] plan: {index._cluster_stats}; {route['cent'].shape[0]} clusters "
+          f"of {int(sizes.min())} to {int(sizes.max())} rows; boundary repair of "
+          f"{index.boundary_rows} rows", flush=True)
+    print(f"[cluster] K1 launched {built} times in the build: {blocks} routed pools "
+          f"(B <= 4096, k={ROUTED_K}, {ROUTED_S} gathered rows; {tails.size} "
+          f"remainder blocks of {int(tails.min(initial=4096))} to "
+          f"{int(tails.max(initial=0))} rows), {repairs} repair "
+          f"pools (B <= 4096, k={GRAPH_POOL_K}, {BIG_ROWS} rows), "
+          f"{built - blocks - repairs} upper-layer pools", flush=True)
+
+    x_dev = torch.from_numpy(train).to(CARD)
+    _, oracle = F.exact_topk(torch.from_numpy(test).to(CARD), x_dev,
+                             torch.ones(BIG_ROWS, dtype=torch.bool, device=CARD),
+                             D.sqnorms(x_dev), k=GRAPH_K, metric="l2", exact=True)
+    oracle = oracle.cpu().numpy()
+    del x_dev
+    torch.cuda.empty_cache()
+    recalls = {ef: graph_walk(torch, index, test, oracle, ef, "bf16 walk", "cluster")
+               for ef in GRAPH_EFS}
+    for ef, bar in BIG_RECALL.items():
+        check(recalls[ef] >= bar, f"recall@10 at ef={ef} {recalls[ef]} < {bar}")
+
+    t0 = time.perf_counter()
+    index.build_route(ROUTE_PROBES)
+    torch.cuda.synchronize()
+    route_s = time.perf_counter() - t0
+    check(index.seed_probes == ROUTE_PROBES, "build_route did not set the seed probes")
+    print(f"[cluster] build_route({ROUTE_PROBES}): {route_s:.2f} s, the build's "
+          f"{index._cluster_route['cent'].shape[0]} centroids", flush=True)
+    routed = graph_walk(torch, index, test, oracle, 100, "routed walk", "cluster")
+    check(routed >= recalls[100] - 0.01,
+          f"the routed walk's recall {routed} fell below the descent's {recalls[100]}")
+
+    waves0, per_wave = index.waves, []
+    for w in range(BIG_WAVES):
+        t0 = time.perf_counter()
+        version.multiset((f"n{j}", new[j]) for j in range(w * FLUSH, (w + 1) * FLUSH))
+        torch.cuda.synchronize()
+        per_wave.append(time.perf_counter() - t0)
+        print(f"[cluster] multiset {w + 1} of {FLUSH} rows into the 4M graph: "
+              f"{per_wave[-1] * 1e3:.1f} ms, of which " + ", ".join(
+                  f"{k} {v * 1e3:.1f}" for k, v in index.wave_seconds.items())
+              + " ms", flush=True)
+    check(index.waves - waves0 == BIG_WAVES, "a multiset was not one wave")
+    check(version.size == BIG_ROWS + BIG_WAVES * FLUSH, f"size {version.size}")
+    print(f"[cluster] {BIG_WAVES} multisets of {FLUSH} rows, one wave each: "
+          f"{sum(per_wave):.2f} s, {BIG_WAVES * FLUSH / sum(per_wave):.0f} rows/s",
+          flush=True)
+
+    want = version.nearest_batch(test, GRAPH_K)
+    t0 = time.perf_counter()
+    hub.save()
+    save_s = time.perf_counter() - t0
+    del hub, version, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hub = EmbeddingHub.load_or_create(base, engine="hnsw", device=CARD)
+    reopen_s = time.perf_counter() - t0
+    version = hub.get_version("big")
+    check(version.size == BIG_ROWS + BIG_WAVES * FLUSH
+          and version.index.seed_probes == ROUTE_PROBES, "the reopened store")
+    check(version.nearest_batch(test, GRAPH_K) == want,
+          "nearest_batch after the reopen differs")
+    print(f"[cluster] save {save_s:.2f} s, snapshot {dir_bytes(base / 'big' / 'initial')} "
+          f"bytes; reopen {reopen_s:.2f} s: routed nearest_batch lists equal",
+          flush=True)
+    print(f"[cluster] phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del hub, version
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1254,6 +1442,7 @@ def main() -> int:
              "offline": ("fused_topk_search_v2",),
              "graph": ("fused_topk_search",),
              "writes": ("fused_topk_search",),
+             "cluster": ("fused_topk_search",),
              "crash": ("fused_topk_search",)}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
                       ("offline", lambda: phase_offline(torch, x_host))):
@@ -1273,6 +1462,11 @@ def main() -> int:
             paths["writes"] = dict(F.LAUNCHES)
         finally:
             close_graph(torch, ctx)
+    # the cluster path: the 4M cluster-routed build (phase 10)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as tmp:
+        F.reset_launches()
+        phase_cluster(torch, F.LAUNCHES, Path(tmp) / "store")
+        paths["cluster"] = dict(F.LAUNCHES)
     # the crash path's kernels run in the server subprocess, which reports them
     crash = phase_crash(torch, x_host)
     if crash is not None:

@@ -7,15 +7,23 @@ layer 0, ``{node: [ids]}`` per upper layer on the host, stacked into
 ``[L, cap, M]`` on the device), geometric levels, greedy descent through
 the upper layers, then a batched beam on layer 0.
 
-What is ported:
+What is ported (all of the reference's graph engine):
 
-  * the exact bulk build, the reference's default for a cold add of 2048
-    to ``exact_build_max`` rows: each row's candidate pool is its exact
-    top-``efC`` set on bf16-rounded operands (``ops/topk.pooled_topk_ids``,
-    K1 on the card), heuristic selection at ``2M``
-    (``ops/nn_descent.heuristic_prune``), reciprocal edges with
-    overflow-only pruning (``ops/nn_descent.gather_reciprocal``), random
-    long edges into free slots, the level draws and the upper layers;
+  * the bulk build of a cold add of at least 2048 rows, by its size, as the
+    reference's ``_bulk_build``: up to ``exact_build_max`` rows each row's
+    candidate pool is its exact top-``efC`` set on bf16-rounded operands
+    (``ops/topk.pooled_topk_ids``, K1 on the card); up to
+    ``cluster_build_max`` rows the pools come from a k-means-routed scan
+    (``ops/kmeans.py``: each cluster's rows scan their ``cluster_probes``
+    nearest clusters' rows, K1 on the card), followed by an exact re-pool
+    of the rows nearest the routing boundary (:meth:`cluster_boundary_rows`
+    then :meth:`refine`); past it, NN-descent (``ops/nn_descent.py``) and
+    graph-walk refinement rounds (:meth:`_bulk_refine`).  Then heuristic
+    selection at ``2M`` (``ops/nn_descent.heuristic_prune``), reciprocal
+    edges with overflow-only pruning (``ops/nn_descent.gather_reciprocal``),
+    random long edges into free slots, the level draws and the upper layers.
+    Past ``exact_full_max`` rows only a ``stream_base`` core is bulk-built
+    and the rest streams in by waves (the hybrid stream);
   * every later write, as the reference makes it: waves of up to
     ``max_wave`` rows, on the host while the graph is tiny (a cold add of
     fewer than 2048 rows starts so) and on the device after
@@ -23,20 +31,22 @@ What is ported:
     live prefix and over each upper layer's members, heuristic selection,
     reciprocal commits); re-sets (unlink, then insert again), ``remove``
     and ``refine``;
-  * search (``ops/wave_insert.make_graph_search``): plain, routed by a
-    snapshot's centroids, on the bf16 walk arena (``EHTPU_WALK_DTYPE``) and
-    on the packed-neighbor arena (``EHTPU_WALK_PACKED=1`` or
-    :meth:`pack_walk`);
+  * search (``ops/wave_insert.make_graph_search``): plain, or routed by the
+    centroids of :meth:`build_route` (fitted here, after a cluster-routed
+    build or by itself, or a snapshot's; ``auto_seed_probes`` fits it once
+    the index passes ``auto_route_min`` rows), on the bf16 walk arena
+    (``EHTPU_WALK_DTYPE``) and on the packed-neighbor arena
+    (``EHTPU_WALK_PACKED=1`` or :meth:`pack_walk`);
   * ``state_arrays``/``from_state`` in the reference's array names, so
     either package opens the other's graph.  A graph the JAX package built
     comes across as ``HNSWIndex.from_state(dims, metric,
     jax_index.state_arrays(), device=...)`` on its numpy arrays.
 
 Every step draws from the same numpy generators in the same order as the
-reference, so the graph is the reference's.  What is not ported yet raises
-``NotImplementedError`` naming ROADMAP.md queue 1, graph engine,
-construction and mutation: a cold add of more than ``exact_build_max`` rows
-(the cluster-routed build) and ``build_route`` (k-means).
+reference, so the graph is the reference's, except NN-descent's initial
+graph: the reference draws it with JAX's generator, the port with a
+``torch.Generator`` seeded alike (``ops/nn_descent.nn_descent`` takes an
+explicit initial graph for a test to pass the reference's draw).
 
 The device state is built whole from the host arrays after a bulk build or
 a capacity growth.  After that the host's changes (host waves, re-sets,
@@ -61,17 +71,20 @@ from embeddinghub_tpu_torch.index.base import Index, as_f32_matrix, next_pow2
 from embeddinghub_tpu_torch.ops import beam as beam_ops
 from embeddinghub_tpu_torch.ops import distance as dist_ops
 from embeddinghub_tpu_torch.ops import fused_topk
+from embeddinghub_tpu_torch.ops import kmeans as km
 from embeddinghub_tpu_torch.ops import nn_descent as nnd
 from embeddinghub_tpu_torch.ops import topk as topk_ops
 from embeddinghub_tpu_torch.ops import wave_insert
 from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
 
-NOT_PORTED = ("is not ported yet; see ROADMAP.md queue 1, graph engine, "
-              "construction and mutation")
 BULK_MIN = 2048  # a cold add of at least this many rows is one bulk build
 # the reference's layer-0 wave scan goes in chunks of this many rows
 SCAN_CHUNK = 1 << 19
+# the NN-descent build: its iterations, and the beam width and hops of its
+# graph-walk refinement rounds (_bulk_refine)
+NND_ITERS = 4
+REFINE_EXPAND = REFINE_HOPS = 32
 # the device state's entries derived from the graph, which every write drops
 WALK_CACHES = ("xa", "xp", "xp_scale")
 # the parts of HNSWIndex.wave_seconds: the wave commit's device parts, the
@@ -104,6 +117,7 @@ class HNSWIndex(Index):
         capacity: int = 1024,
         expand: int = 8,
         seed: int = 100,
+        refine_rounds: int = 3,
         device: torch.device | str = DEFAULT_DEVICE,
     ):
         if metric not in dist_ops.METRICS:
@@ -132,13 +146,36 @@ class HNSWIndex(Index):
         # node of device memory for E block rows per hop instead of E*M
         # scattered ones, then an exact rerank; for frozen graphs.
         self.walk_packed = bool(int(os.environ.get("EHTPU_WALK_PACKED", "0")))
-        # Exact-scan construction up to this many rows (the reference's
-        # default build; its cluster-routed build takes over beyond).
+        # Graph-walk refinement rounds of the NN-descent build (_bulk_refine).
+        self.refine_rounds = int(refine_rounds)
+        # The bulk build by size (the reference's defaults): exact pools up
+        # to exact_build_max rows, cluster-routed ones up to
+        # cluster_build_max, NN-descent beyond.
         self.exact_build_max = 2_000_000
-        # Centroid-routed multi-entry search: a snapshot's route seeds the
-        # beam with seed_probes medoids (fitting a route, build_route, is
-        # not ported yet).
+        self.exact_refine_rounds = 0
+        self.cluster_build_max = 64_000_000
+        # k-means clusters of about cluster_target rows; a row's pool scans
+        # its own and its cluster_probes - 1 nearest clusters' rows; then the
+        # cluster_repair_frac of rows nearest the routing boundary get exact
+        # pools (refine); cluster_refine_rounds adds graph-walk rounds.
+        self.cluster_target = 4_096
+        self.cluster_probes = 8
+        self.cluster_repair_frac = 0.5
+        self.cluster_refine_rounds = 0
+        # The hybrid stream: past exact_full_max rows a cold add bulk-builds
+        # a stream_base core and streams the rest by waves, then refines the
+        # whole graph when stream_refine is set.
+        self.exact_full_max = self.cluster_build_max
+        self.stream_base = 65_536
+        self.stream_refine = False
+        # Centroid-routed multi-entry search: the beam is also seeded with
+        # the medoids of the query's seed_probes nearest clusters
+        # (build_route).  auto_seed_probes > 0 fits the route once the index
+        # holds auto_route_min rows and again once it has doubled (the
+        # store's hnsw_seed_probes knob).
         self.seed_probes = 0
+        self.auto_seed_probes = 0
+        self.auto_route_min = 1 << 20
         # rows a wave inserts at most (the reference's measured sweet spot:
         # wave rows do not see each other)
         self.max_wave = 4_096
@@ -166,7 +203,15 @@ class HNSWIndex(Index):
         self._mcount_host = np.zeros(0, np.int64)
         self._hi_water: int | None = None  # see _scan_hi_water
         self._gs_fns: dict[tuple, object] = {}
-        self._cluster_route = None
+        # the route: centroids, and after a cluster-routed build its
+        # assignment, probe lists and build order; medoids once build_route
+        # ran (see build_route)
+        self._cluster_route: dict | None = None
+        # the last cluster-routed build's plan: clusters, truncated probe
+        # lists, own clusters cut, candidates dropped, the arena width S
+        self._cluster_stats: dict | None = None
+        # rows the last cluster-routed build's boundary repair re-pooled
+        self.boundary_rows = 0
         # seconds of the last bulk build, by part (see _bulk_build)
         self.build_seconds: dict[str, float] = {}
         # seconds of the last add's waves, by part (WAVE_SECONDS), and the
@@ -204,22 +249,19 @@ class HNSWIndex(Index):
         """hnswlib's ``addPoint`` for a batch (the reference's ``add``,
         ``hnsw.py:261-368``): rows already in the graph are unlinked and
         inserted again (a re-set); a cold add of ``BULK_MIN`` rows or more
-        is one exact bulk build; everything else goes in by waves of
-        ``min(rest, max(8, graph size), max_wave)`` rows, on the host while
-        the graph is tiny and by the fused device wave after.  An add that
-        raises part way leaves the graph, its device state and the level
-        generator as they were."""
+        is one bulk build (of a ``stream_base`` core only, past
+        ``exact_full_max`` rows), after a cluster-routed one the boundary
+        repair; everything else goes in by waves of ``min(rest, max(8, graph
+        size), max_wave)`` rows, on the host while the graph is tiny and by
+        the fused device wave after.  An add that raises part way leaves the
+        graph, its device state, the route and the level generator as they
+        were."""
         rows = np.asarray(rows, dtype=np.int64).ravel()
         vecs = as_f32_matrix(vecs, self.dims)
         if rows.shape[0] != vecs.shape[0]:
             raise ValueError("rows / vecs length mismatch")
         if rows.size == 0:
             return
-        if self._graph_size() == 0 and rows.size > self.exact_build_max:
-            raise NotImplementedError(
-                f"a cold add of {rows.size} rows (the exact bulk build takes up "
-                f"to {self.exact_build_max}; the cluster-routed build beyond) "
-                f"{NOT_PORTED}")
         self.wave_seconds = dict.fromkeys(WAVE_SECONDS, 0.0)
         t0 = time.perf_counter()
         cp = self._checkpoint(rows)
@@ -252,12 +294,28 @@ class HNSWIndex(Index):
             if mark_dirty:  # the fused wave scatters its own rows
                 self._dirty_vec.update(int(r) for r in w_rows)
 
+        streamed = False
         if self._graph_size() == 0 and len(pending) >= BULK_MIN:
-            commit_host(0, len(pending), mark_dirty=False)  # built whole below
-            self._bulk_build(pending, pvecs)
+            # past exact_full_max rows a core is bulk-built, the rest streams
+            base = len(pending)
+            if base > self.exact_full_max:
+                base, streamed = self.stream_base, True
+            commit_host(0, base, mark_dirty=False)  # built whole below
+            self._bulk_build(pending[:base], pvecs[:base])
             self._invalidate_device()
             self._hi_water = max(self._scan_hi_water(), int(rows.max()) + 1)
-            return
+            route = self._cluster_route
+            if route and route.pop("fresh", False) and self.cluster_repair_frac > 0:
+                # the boundary repair: exact pools over the whole arena for
+                # the rows whose routed pools were neighbourhood-limited
+                t0 = time.perf_counter()
+                b_rows = self.cluster_boundary_rows()
+                if b_rows.size:
+                    self.refine(b_rows)
+                self._sync_device()
+                self.build_seconds["boundary_repair"] = time.perf_counter() - t0
+                self.boundary_rows = int(b_rows.size)
+            pending, praw, pvecs = pending[base:], praw[base:], pvecs[base:]
         tiny = max(4 * self.ef_construction, 512)
         i = 0
         while i < len(pending):
@@ -276,6 +334,8 @@ class HNSWIndex(Index):
                                           - sum(self.wave_seconds.values()) + parts)
             self.waves += 1
             i += wave
+        if streamed and self.stream_refine:
+            self.refine()
         self._hi_water = max(self._scan_hi_water(), int(rows.max()) + 1)
 
     def _checkpoint(self, rows: np.ndarray) -> dict:
@@ -296,6 +356,8 @@ class HNSWIndex(Index):
             "dirty": (set(self._dirty_vec), set(self._dirty_nb0),
                       {k: set(v) for k, v in self._dirty_upper.items()}),
             "upper": self._upper, "state": self._device_state, "device": None,
+            "route": (self._cluster_route, dict(self._cluster_route or {}),
+                      self._cluster_stats, self.seed_probes, self.boundary_rows),
         }
         if not self._host_stale:
             cp["nb0"] = self._nb0.copy()
@@ -323,6 +385,11 @@ class HNSWIndex(Index):
         self._upper = cp["upper"]
         self._rng.bit_generator.state = cp["rng"]
         self._mcount_host = cp["mcount_host"]
+        route, fields, self._cluster_stats, self.seed_probes, self.boundary_rows = cp["route"]
+        if route is not None:  # the same dict, its entries as they were
+            route.clear()
+            route.update(fields)
+        self._cluster_route = route
         vec, nb0, upper = cp["dirty"]
         self._dirty_vec, self._dirty_nb0, self._dirty_upper = vec, nb0, upper
         st, dev = cp["state"], cp["device"]
@@ -426,8 +493,91 @@ class HNSWIndex(Index):
             state.pop(name, None)
         self._host_stale = False
 
+    def cluster_boundary_rows(self, frac: float | None = None) -> np.ndarray:
+        """The rows of the last cluster-routed build with the smallest
+        routing margins (``ops/kmeans.boundary_margins``), the
+        ``cluster_repair_frac`` of them by default: the rows whose pools
+        were held to a probed neighbourhood their true neighbours may
+        straddle.  :meth:`refine` of them is the boundary repair, the
+        cluster-routed build's default post-pass (:meth:`add`)."""
+        route = self._cluster_route
+        if not route or "rows" not in route:
+            return np.empty(0, np.int64)
+        frac = self.cluster_repair_frac if frac is None else frac
+        rows = route["rows"]
+        take = int(rows.size * max(0.0, min(1.0, frac)))
+        if take == 0:
+            return np.empty(0, np.int64)
+        # the device arena gathered into build order
+        xd = self._device_arrays()["x"][self._upload(rows)]
+        margins = km.boundary_margins(xd, self._upload(route["cent"]), route["assign"],
+                                      route["probes"])
+        return rows[np.argsort(margins, kind="stable")[:take]]
+
     def build_route(self, seed_probes: int = 8, k: int | None = None):
-        raise NotImplementedError(f"HNSWIndex.build_route (kmeans) {NOT_PORTED}")
+        """Centroid-routed multi-entry search (the reference's
+        ``build_route``, ``hnsw.py:1812-1896``): the k-means route of the
+        cluster-routed build, or one fitted now on a sample of at most 2**18
+        live rows (``k`` clusters, by default about one per
+        ``cluster_target`` rows), and again once the index has doubled
+        since the route was built; then each cluster's medoid, the live row
+        nearest its centroid.  From then on every layer-0 beam also starts
+        from the medoids of the query's ``seed_probes`` nearest clusters.
+        Everything is computed before anything is kept, so a failure leaves
+        the index as it was."""
+        route = self._cluster_route
+        state = self._device_arrays()
+        if route is not None and route.get("built_size") \
+                and self._size >= 2 * route["built_size"]:
+            route = None  # the index doubled: refit
+        # (a snapshot's route holds no assignment, which the medoids need:
+        # the reference fails on it, the port refits)
+        if route is None or "assign" not in route:
+            if k is None:
+                k = max(16, next_pow2(max(1, self._size // max(self.cluster_target, 1)),
+                                      floor=16))
+            self._sync_host()
+            live = np.flatnonzero(self._hvalid)
+            samp = live[:: max(1, live.size // (1 << 18))][: 1 << 18]
+            cent = km.fit_kmeans(self._upload(self._prep(self._hx[samp])), k,
+                                 iters=8, seed=11, limit=samp.size)
+            route = {"cent": cent.cpu().numpy(),
+                     "assign": km.assign_clusters(state["x"], cent)}
+        route = dict(route)
+        cent, cap = route["cent"], self._cap
+        assign = np.full((cap,), -1, np.int64)
+        if "rows" in route:
+            # a cluster-routed build's assignment is in build order (the
+            # reference reads it as row order, the same when the rows were
+            # 0..n-1)
+            assign[route["rows"]] = route["assign"]
+        else:
+            assign[: min(cap, route["assign"].shape[0])] = route["assign"][:cap]
+        # each row's squared distance to its centroid, in chunks
+        cent_d = self._upload(cent)
+        d2 = torch.empty((cap,), dtype=torch.float32, device=self.device)
+        safe = self._upload(np.maximum(assign, 0))
+        for s in range(0, cap, 1 << 18):
+            d2[s:s + (1 << 18)] = ((state["x"][s:s + (1 << 18)]
+                                    - cent_d[safe[s:s + (1 << 18)]]) ** 2).sum(dim=1)
+        d2 = d2.cpu().numpy()
+        d2[~state["valid"][:cap].cpu().numpy()] = np.inf
+        d2[assign < 0] = np.inf
+        # the medoid of a cluster: its live row nearest the centroid
+        medoids = np.full((cent.shape[0],), -1, np.int32)
+        order = np.lexsort((d2, assign))
+        ga = assign[order]
+        heads = np.flatnonzero(np.concatenate([[True], ga[1:] != ga[:-1]]))
+        ok = (ga[heads] >= 0) & np.isfinite(d2[order[heads]])
+        medoids[ga[heads[ok]]] = order[heads[ok]]
+        route["medoids"] = medoids
+        route["built_size"] = self._size
+        route["_dev"] = (self._upload(self._prep(cent.astype(np.float32))),
+                         self._upload(np.einsum("kd,kd->k", cent, cent).astype(np.float32)),
+                         self._upload(medoids))
+        self._cluster_route = route
+        self.seed_probes = int(seed_probes)
+        return self
 
     def _ensure_capacity(self, need: int) -> None:
         if need <= self._cap:
@@ -448,17 +598,25 @@ class HNSWIndex(Index):
     # ------------------------------------------------------------- bulk build
 
     def _bulk_build(self, rows: np.ndarray, pvecs: np.ndarray) -> None:
-        """Exact bulk construction (``hnsw.py:484-609`` of the reference,
-        its ``n <= exact_build_max`` branch): layer 0 from exact pools,
-        heuristic selection and a symmetrize; random long edges; levels and
-        upper layers.  Records its seconds by part in ``build_seconds``:
-        pools (K1), prune, symmetrize, upper (the upper layers, their own
-        pools included) and host (everything else: padding, upload, long
-        edges, id mapping, level draws)."""
+        """Bulk construction (``hnsw.py:484-609`` of the reference): layer 0
+        by the branch the row count picks (exact pools up to
+        ``exact_build_max``, cluster-routed ones up to
+        ``cluster_build_max``, NN-descent and refinement rounds beyond), each
+        followed by the same symmetrize; then random long edges, levels and
+        upper layers.  Records its seconds by part in ``build_seconds``: the
+        branch's own parts (exact: pools, K1; cluster-routed: kmeans, plan,
+        routed_pools, K1 over each block's gathered candidates; NN-descent:
+        nn_descent, refine), prune, symmetrize, upper (the upper layers,
+        their own pools included) and host (everything else: padding,
+        upload, long edges, id mapping, level draws).  :meth:`add` adds the
+        boundary repair's seconds."""
         t_start = time.perf_counter()
-        self.build_seconds = dict.fromkeys(
-            ("pools", "prune", "symmetrize", "upper", "host"), 0.0)
         n = len(rows)
+        exact, routed = n <= self.exact_build_max, n <= self.cluster_build_max
+        first = (("pools",) if exact else ("kmeans", "plan", "routed_pools") if routed
+                 else ("nn_descent",))
+        self.build_seconds = dict.fromkeys(
+            first + ("prune", "symmetrize", "upper", "host"), 0.0)
         block = 2048 if n < 32768 else 4096
         # padded to a multiple of the query block, and past 64k rows of the
         # reference's 64k scan chunk, which keeps its pool widths
@@ -477,11 +635,39 @@ class HNSWIndex(Index):
         xd = fused_topk.arena_f32(self._upload(x))
         xsq = dist_ops.sqnorms(xd)
 
-        fwd = self._exact_build_fwd(xd, xsq, n, padded, block)
-        t0 = time.perf_counter()
-        nb_local = self._symmetrize_device(fwd, xd, xsq, n, padded)
-        self.build_seconds["symmetrize"] = time.perf_counter() - t0
-        del fwd, xd, xsq
+        if exact or routed:
+            if exact:
+                fwd = self._exact_build_fwd(xd, xsq, n, padded, block)
+            else:
+                fwd = self._cluster_build_fwd(xd, xsq, n, padded)
+                self._cluster_route["rows"] = rows.astype(np.int64)
+            t0 = time.perf_counter()
+            nb_local = self._symmetrize_device(fwd, xd, xsq, n, padded)
+            self.build_seconds["symmetrize"] = time.perf_counter() - t0
+            del fwd
+            rounds = self.exact_refine_rounds if exact else self.cluster_refine_rounds
+            if rounds:
+                nb_local = self._bulk_refine(xd, xsq, nb_local, n, padded, rounds)
+        else:
+            t0 = time.perf_counter()
+            m0 = min(self.m0, 32)
+            nb = nnd.nn_descent(xd, xsq, m=m0, iters=NND_ITERS, block=block,
+                                metric=self.metric,
+                                generator=torch.Generator(device=self.device).manual_seed(0))
+            self._sync_device()
+            t1 = time.perf_counter()
+            self.build_seconds["nn_descent"] = t1 - t0
+            # forward and reverse-sample candidates, then the heuristic
+            cand = torch.cat([nb, nnd.reverse_sample(nb)], dim=1)
+            nb_local = nnd.heuristic_prune(xd, xsq, cand, m_keep=self.m0,
+                                           metric=self.metric, cand_k=2 * m0)
+            nb_local = nb_local.cpu().numpy().astype(np.int32)
+            nb_local[n:] = -1
+            nb_local = np.where(nb_local >= n, -1, nb_local)  # drop pads
+            self.build_seconds["prune"] = time.perf_counter() - t1
+            del nb, cand
+            nb_local = self._bulk_refine(xd, xsq, nb_local, n, padded)
+        del xd, xsq
 
         # Connectivity insurance: random long-range edges into FREE slots
         # only (never overwriting selected links).
@@ -540,6 +726,182 @@ class HNSWIndex(Index):
             self.build_seconds["prune"] += t2 - t1
         real = (torch.arange(padded, device=self.device) < n)[:, None]
         return torch.where(real & (fwd < n), fwd, -1)
+
+    def _cluster_build_fwd(self, xd, xsqd, n: int, padded: int):
+        """Forward link lists from cluster-routed pools (the reference's
+        ``_cluster_build_fwd``, ``hnsw.py:723-910``): k-means the rows into
+        about ``n / cluster_target`` clusters; each cluster's rows, in query
+        blocks of up to ``min(cluster_target, 4096)``, scan a candidate
+        arena made of their ``cluster_probes`` nearest clusters' rows (own
+        cluster first), cut to ``S = next_pow2(probes * target)`` rows;
+        heuristic selection at ``m0`` over each row's ``next_pow2(efC)``
+        best.  Scan work grows as ``n * S``, not ``n**2``.  Keeps the route
+        (centroids, assignment, probe lists; ``fresh`` asks :meth:`add` for
+        the boundary repair) and the plan's counts in ``_cluster_stats``.
+        Returns a device ``[padded, m0]`` tensor of local ids (-1 past
+        ``n``)."""
+        secs = self.build_seconds
+        t0 = time.perf_counter()
+        target = self.cluster_target
+        qb = min(target, 4096)
+        k = max(16, next_pow2(max(1, n // target), floor=16))
+        cent = km.fit_kmeans(xd, k, iters=8, seed=11, limit=n,
+                             sample=min(n, max(1 << 18, 64 * k)))
+        assign = km.assign_clusters(xd[:n], cent)
+        probes = km.probe_order(cent)[:, : max(self.cluster_probes, 1)]
+        self._cluster_route = {"cent": cent.cpu().numpy(), "assign": assign,
+                               "probes": probes, "fresh": True}
+        t1 = time.perf_counter()
+        secs["kmeans"] += t1 - t0
+
+        # the plan, on the host: members sorted stably by cluster; a
+        # cluster's candidate arena is its probe list's members, cut or
+        # padded with -1 to S
+        order = np.argsort(assign, kind="stable")
+        sorted_assign = assign[order]
+        starts = np.searchsorted(sorted_assign, np.arange(k))
+        ends = np.searchsorted(sorted_assign, np.arange(k), side="right")
+        members = [order[starts[c]:ends[c]] for c in range(k)]
+        S = next_pow2(self.cluster_probes * target, floor=qb)
+        # a probe list longer than S loses its tail (the own cluster leads);
+        # an own cluster larger than S loses own rows too (own_truncated)
+        stats = {"clusters": 0, "truncated": 0, "own_truncated": 0,
+                 "dropped_cands": 0, "total_cands": 0, "S": int(S)}
+        arenas, blocks = [], []   # blocks: (arena index, query rows)
+        for c in range(k):
+            mem = members[c]
+            if mem.size == 0:
+                continue
+            stats["clusters"] += 1
+            cand = np.concatenate([members[p] for p in probes[c]])
+            stats["total_cands"] += int(cand.size)
+            if cand.size >= S:
+                stats["truncated"] += int(cand.size > S)
+                stats["dropped_cands"] += int(cand.size - S)
+                if mem.size > S:
+                    stats["own_truncated"] += 1
+                    # spread the cut over the own cluster, so that every
+                    # region of it keeps rows in the arena
+                    own_keep = max(S // 2, S - qb)
+                    cand = np.concatenate([
+                        mem[np.linspace(0, mem.size - 1, own_keep).astype(np.int64)],
+                        cand[mem.size:], np.full(S, -1, np.int64)])[:S]
+                else:
+                    cand = cand[:S]
+            else:
+                cand = np.concatenate([cand, np.full(S - cand.size, -1, np.int64)])
+            blocks += [(len(arenas), mem[s:s + qb]) for s in range(0, mem.size, qb)]
+            arenas.append(cand)
+        self._cluster_stats = stats
+        arenas_d = self._upload(np.stack(arenas).astype(np.int64))
+        queries_d = self._upload(np.concatenate([blk for _, blk in blocks]).astype(np.int64))
+        pool_k = min(next_pow2(self.ef_construction, floor=64), S)
+        metric = self.metric if self.metric != "cosine" else "ip"
+        fwd = torch.full((padded, self.m0), -1, dtype=torch.int64, device=self.device)
+        self._sync_device()
+        t2 = time.perf_counter()
+        secs["plan"] += t2 - t1
+
+        # the routed scan: each block's own rows only (no padding), so every
+        # scatter below writes unique rows
+        at = 0
+        for a, blk in blocks:
+            qids = queries_d[at:at + blk.size]
+            at += blk.size
+            ids_b = self._routed_pool(xd, xsqd, qids, arenas_d[a], pool_k, metric)
+            self._sync_device()
+            t3 = time.perf_counter()
+            fwd[qids] = nnd.heuristic_prune(
+                xd, xsqd, ids_b, m_keep=self.m0, metric=self.metric, cand_k=pool_k,
+                q=xd[qids], q_sq=xsqd[qids])[:, :self.m0]
+            self._sync_device()
+            t4 = time.perf_counter()
+            secs["routed_pools"] += t3 - t2
+            secs["prune"] += t4 - t3
+            t2 = t4
+        real = (torch.arange(padded, device=self.device) < n)[:, None]
+        return torch.where(real & (fwd < n), fwd, -1)
+
+    def _routed_pool(self, xd, xsqd, qids, cids, pool_k: int, metric: str):
+        """The ``pool_k`` best candidates of each query row ``qids [B]``
+        among the candidate rows ``cids [S]`` (-1 padded), the query's own
+        row left out: the rows gathered into a compact sub-arena, K1 with
+        bf16 operands over it on the card (its plain version on the CPU).
+        The reference masks each query's own row before its top-k; K1 masks
+        rows, not (query, row) pairs, so it is asked for ``pool_k + 1`` and
+        then the own row goes, or the last column where the own row is not
+        among them.  Returns ``[B, pool_k]`` global ids, nearest first, -1
+        padded."""
+        safe = cids.clamp(min=0)
+        kk = min(pool_k + 1, cids.shape[0])
+        local = topk_ops.pooled_topk_ids(
+            xd[qids], fused_topk.arena_f32(xd[safe]), cids >= 0, xsqd[safe],
+            metric=metric, k=kk).to(torch.int64)
+        ids = torch.where(local >= 0, cids[local.clamp(min=0)], -1)
+        drop = ids == qids[:, None]
+        if kk > pool_k:
+            drop[:, -1] |= ~drop.any(dim=1)
+        keep = torch.argsort(drop.to(torch.int8), dim=1, stable=True)[:, :pool_k]
+        ids = torch.where(torch.gather(drop, 1, keep), -1, torch.gather(ids, 1, keep))
+        return wave_insert._pad_cols(ids, pool_k)
+
+    def _bulk_refine(self, xd, xsqd, nb_local: np.ndarray, n: int, padded: int,
+                     rounds: int | None = None) -> np.ndarray:
+        """Graph-walk refinement of a layer-0 table in local ids (the
+        reference's ``_bulk_refine``, ``hnsw.py:1000-1088``), ``rounds``
+        rounds (``refine_rounds`` by default).  A round beam-searches every
+        row on the current graph from the medoid of the rows (ef 64, the
+        last round ``min(efC, 512)``; ``REFINE_EXPAND`` wide,
+        ``REFINE_HOPS`` hops), selects ``m0`` links by the heuristic from
+        the found ids and the current list, and symmetrizes.  Adds its
+        seconds to ``build_seconds["refine"]``."""
+        rounds = self.refine_rounds if rounds is None else int(rounds)
+        if rounds <= 0 or n < 8:
+            return nb_local
+        t_start = time.perf_counter()
+        m0 = self.m0
+        ef_final = min(self.ef_construction, 512)
+        schedule = [min(64, ef_final)] * (rounds - 1) + [ef_final]
+        validd = torch.arange(padded, device=self.device) < n
+        # the medoid of the rows is every search's entry (the mean summed in
+        # f64, the l2 distances to it in chunks: no arena-sized temporary)
+        xq = xd[:n]
+        mean = (xq.sum(0, dtype=torch.float64) / n).to(torch.float32)
+        if self.metric == "l2":
+            step = 1 << 20
+            d = torch.cat([((xq[s:s + step] - mean) ** 2).sum(1)
+                           for s in range(0, n, step)])
+            entry_local = int(d.argmin())
+        else:
+            entry_local = int((xq @ mean).argmax())
+        bq = 4096 if n >= 4096 else next_pow2(n, floor=8)
+        entries = torch.full((bq,), entry_local, dtype=torch.int64, device=self.device)
+        self_col = torch.arange(n, device=self.device)[:, None]
+        for ef in schedule:
+            nbd = self._upload(nb_local)
+            found = []
+            for s in range(0, n, bq):
+                e = min(s + bq, n)
+                # the block's first row pads a short block (the beam's exit
+                # is over the whole batch, as in the reference)
+                q = xq[s].expand(bq, self.dims).clone()
+                q[: e - s] = xq[s:e]
+                _, ids_b = beam_ops.beam_search(
+                    q, entries, nbd, xd, xsqd, validd,
+                    metric=self.metric, ef=ef, expand=REFINE_EXPAND,
+                    max_hops=REFINE_HOPS)
+                found.append(ids_b[: e - s].to(torch.int32))
+            cand = torch.full((padded, ef + m0), -1, dtype=torch.int32, device=self.device)
+            cand[:n, :ef] = torch.cat(found)
+            cand[:n, ef:] = nbd[:n]
+            cand[:n] = torch.where(cand[:n] == self_col, -1, cand[:n])
+            pruned = nnd.heuristic_prune(xd, xsqd, cand, m_keep=m0,
+                                         metric=self.metric, cand_k=ef + m0)
+            pruned[n:] = -1
+            nb_local = self._symmetrize_device(pruned, xd, xsqd, n, padded)
+        self.build_seconds["refine"] = (self.build_seconds.get("refine", 0.0)
+                                        + time.perf_counter() - t_start)
+        return nb_local
 
     def _symmetrize_device(self, fwd, xd, xsqd, n: int, padded: int,
                            width: int | None = None) -> np.ndarray:
@@ -1010,7 +1372,15 @@ class HNSWIndex(Index):
         q = self._upload(q)
         ef_l = min(next_pow2(ef, floor=8), 1024)
         route = self._cluster_route or {}
-        seeds = (min(self.seed_probes, ef_l - 1)
+        if self.auto_seed_probes > 0 and self._size >= self.auto_route_min and (
+                route.get("_dev") is None
+                or self._size >= 2 * route.get("built_size", self._size + 1)):
+            self.build_route(self.auto_seed_probes)
+            route = self._cluster_route
+        # the beam starts from the descent's entry and the seeds, fewer than
+        # ef_l in all (the reference allows ef_l - 1 seeds, one too many: its
+        # beam then refuses the search)
+        seeds = (min(self.seed_probes, ef_l - 2)
                  if self.seed_probes > 0 and route.get("_dev") is not None else 0)
         spec = max(1, int(self.spec))
         exit_k = int(self.exit_k)

@@ -1,15 +1,19 @@
-"""Neighbor selection for the graph build: the twin of the two functions of
-``embeddinghub_tpu/ops/nn_descent.py`` that the exact bulk build runs,
-:func:`heuristic_prune` and :func:`gather_reciprocal`.  ``nn_descent``
-itself waits for ROADMAP.md queue 1, graph engine, construction and
-mutation.
+"""NN-descent and neighbor selection for the graph build: the twin of
+``embeddinghub_tpu/ops/nn_descent.py``.
 
-Both are plain PyTorch on the card: the reference's are XLA, not Pallas.
-Every product is f32 (``torch.bmm`` with TF32 off, the port's ``full_f32``
-policy), and every order that decides an id follows the reference's:
-``argmin`` takes the first of equals, the final pick breaks ties to the
-lower candidate column (``ops/topk.smallest_k``), and the reciprocal gather
-sorts its edges stably.
+* :func:`nn_descent` builds an approximate kNN graph from a random one by
+  refining every node's list from its neighbors, its reverse neighbors and
+  its neighbors' neighbors (Dong et al., WWW'11), block by block; the bulk
+  build runs it past ``cluster_build_max`` rows;
+* :func:`heuristic_prune` is hnswlib's neighbor-selection heuristic, batched;
+* :func:`gather_reciprocal` adds each row's incoming edges to its list.
+
+All of it is plain PyTorch on the card: the reference's are XLA, not
+Pallas.  Every product is f32 (``torch.bmm`` with TF32 off, the port's
+``full_f32`` policy), and every order that decides an id follows the
+reference's: ``argmin`` takes the first of equals, the final pick breaks
+ties to the lower candidate column (``ops/topk.smallest_k``), and the
+reciprocal gather sorts its edges stably.
 """
 
 from __future__ import annotations
@@ -24,6 +28,72 @@ _DUMP = 1 << 30  # sort key of masked edges: after every row id
 # Rows pruned at a time: the [rows, K, K] f32 pair matrix is the memory hot
 # spot, 1 GiB at 4096 x 256 x 256.
 PRUNE_BLOCK_BYTES = 1 << 30
+
+
+def reverse_sample(nb: torch.Tensor) -> torch.Tensor:
+    """``rev [N, M]``: column j of row t holds a node i with ``nb[i, j] ==
+    t``, or -1.  The reference scatters every i at once (``rev.at[nb[:, j],
+    j].set(ids)``), so with several such i either copy may win; here the
+    largest id wins, which is also the last write of the reference's scatter
+    on the CPU.  A -1 entry of ``nb`` adds nothing (the reference's index -1
+    would write row N-1)."""
+    n, m = nb.shape
+    ids = torch.arange(n, device=nb.device)
+    rev = torch.full((n, m), -1, dtype=torch.int64, device=nb.device)
+    for j in range(m):
+        col, ok = nb[:, j], nb[:, j] >= 0
+        rev[:, j].scatter_reduce_(0, col[ok], ids[ok], reduce="amax")
+    return rev
+
+
+def _block_refine(x, x_sq, nb, rev, block_ids, metric):
+    """One NN-descent step for the nodes ``block_ids [B]``: each one's new
+    ``M`` nearest among its own neighbors, its reverse sample and its
+    neighbors' neighbors (deduplicated, itself left out), by f32 distance,
+    nearer first, -1 where fewer remain."""
+    b, m = block_ids.shape[0], nb.shape[1]
+    own = nb[block_ids]
+    hop2 = nb[own.clamp(min=0)].reshape(b, m * m)
+    hop2 = torch.where(torch.repeat_interleave(own >= 0, m, dim=1), hop2, -1)
+    cand = torch.sort(torch.cat([own, rev[block_ids], hop2], dim=1), dim=1).values
+    dup = torch.zeros_like(cand, dtype=torch.bool)
+    dup[:, 1:] = cand[:, 1:] == cand[:, :-1]
+    cand = torch.where(dup | (cand == block_ids[:, None]), -1, cand)
+    safe = cand.clamp(min=0)
+    dots = torch.bmm(x[safe].to(torch.float32),
+                     x[block_ids].to(torch.float32)[:, :, None])[:, :, 0]
+    if metric == "l2":
+        d = x_sq[safe] - 2.0 * dots + x_sq[block_ids][:, None]
+    else:
+        d = 1.0 - dots
+    nd, pos = smallest_k(torch.where(cand >= 0, d, INF), m)
+    return torch.where(torch.isfinite(nd), torch.gather(cand, 1, pos), -1)
+
+
+def nn_descent(x, x_sq, *, m: int = 32, iters: int = 8, block: int = 4096,
+               metric: str = "l2", generator: torch.Generator | None = None,
+               init: torch.Tensor | None = None) -> torch.Tensor:
+    """Approximate kNN graph ``[N, m]`` of ``x [N, D]`` (metric-preprocessed
+    rows, ``x_sq`` their squared norms): int64 ids, itself excluded, -1
+    padded.  N must be a multiple of ``block``.  The initial graph is
+    ``init [N, m]`` when given (the reference's own draw, say), else uniform
+    ids from ``generator``; an entry equal to its row moves to the next id,
+    as in the reference."""
+    n = x.shape[0]
+    if n % block:
+        raise ValueError(f"N={n} not a multiple of block={block}")
+    dev = x.device
+    if init is None:
+        nb = torch.randint(0, n, (n, m), generator=generator, device=dev)
+    else:
+        nb = init.to(device=dev, dtype=torch.int64)
+    ids = torch.arange(n, device=dev)
+    nb = torch.where(nb == ids[:, None], (nb + 1) % n, nb)
+    for _ in range(iters):
+        rev = reverse_sample(nb)
+        nb = torch.cat([_block_refine(x, x_sq, nb, rev, ids[s:s + block], metric)
+                        for s in range(0, n, block)])
+    return nb
 
 
 def heuristic_prune(x, x_sq, nb, *, m_keep: int, metric: str = "l2",

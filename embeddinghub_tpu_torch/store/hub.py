@@ -18,11 +18,12 @@ either package opens in the other.  Two engines are ported: ``flat`` (the
 float32 arena, the default) and ``hnsw`` (``index/hnsw.py``, built with
 the ``hnsw_*`` knobs of ``utils/config.py``, as the reference's
 ``_make_index``).  Every other engine of the reference raises
-``NotImplementedError`` naming its ROADMAP item, and so does ``hnsw`` with
-``hnsw_seed_probes > 0`` (the centroid route needs k-means, which is not
-ported).  The engine picks the index of new versions and of versions rebuilt
-from a WAL alone; a snapshot names its own index type.  The hnsw knobs come
-from the ``config`` the caller passes (``get_config()`` without one).
+``NotImplementedError`` naming its ROADMAP item.  The engine picks the index
+of new versions and of versions rebuilt from a WAL alone; a snapshot names
+its own index type.  The hnsw knobs come from the ``config`` the caller
+passes (``get_config()`` without one); ``hnsw_seed_probes > 0`` routes a
+graph's searches by k-means centroids once it holds ``hnsw_route_min`` rows
+(``HNSWIndex.auto_seed_probes``), as the reference's hub does.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from pathlib import Path
 
 import torch
 
-from embeddinghub_tpu_torch.index.hnsw import NOT_PORTED as HNSW_NOT_PORTED
 from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
 from embeddinghub_tpu_torch.ops import distance as dist_ops
 from embeddinghub_tpu_torch.store.space import DEFAULT_VERSION, Space
@@ -71,9 +71,6 @@ class EmbeddingHub:
         if engine not in ("flat", "hnsw"):
             raise ValueError(f"unknown engine {engine!r}")
         self.config = config if config is not None else get_config()
-        if engine == "hnsw" and self.config.hnsw_seed_probes > 0:
-            raise NotImplementedError(
-                f"hnsw_seed_probes > 0 (HNSWIndex.build_route, kmeans) {HNSW_NOT_PORTED}")
         self.base_path = Path(base_path) if base_path is not None else None
         self.engine = engine
         self.device = resolve_device(device)
@@ -99,9 +96,14 @@ class EmbeddingHub:
         if self.engine == "flat":
             return None
         cfg = self.config
-        return HNSWIndex(dims, metric=metric, m=cfg.hnsw_m,
-                         ef_construction=cfg.hnsw_ef_construction,
-                         ef_search=cfg.hnsw_ef_search, device=self.device)
+        idx = HNSWIndex(dims, metric=metric, m=cfg.hnsw_m,
+                        ef_construction=cfg.hnsw_ef_construction,
+                        ef_search=cfg.hnsw_ef_search, device=self.device)
+        # the centroid route, fitted by the index's first search past
+        # hnsw_route_min rows
+        idx.auto_seed_probes = cfg.hnsw_seed_probes
+        idx.auto_route_min = cfg.hnsw_route_min
+        return idx
 
     # ----------------------------------------------------------------- spaces
 

@@ -42,8 +42,7 @@ class Config:
 
     # HNSW defaults: hnswlib's (reference index.cc:10-15: M=16,
     # efConstruction=200, ef=10).  hnsw_seed_probes > 0 routes searches by
-    # k-means centroids past hnsw_route_min rows in the JAX package; the
-    # port's hub refuses it until HNSWIndex.build_route is ported.
+    # k-means centroids past hnsw_route_min rows (HNSWIndex.build_route).
     hnsw_m: int = 16
     hnsw_ef_construction: int = 200
     hnsw_ef_search: int = 10

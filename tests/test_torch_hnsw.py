@@ -2,8 +2,10 @@
 inputs (numpy seeds): the build's kernels (``heuristic_prune``,
 ``gather_reciprocal``, ``pooled_topk_ids``), the exact bulk build, search
 over a graph carried across by ``from_state``, snapshots both ways, the
-``hnsw`` store engine and its server, and the paths not ported yet
-(``tests/test_torch_hnsw_writes.py`` holds the writes into a built graph).
+``hnsw`` store engine and its server, and faults injected into the build
+past ``exact_build_max`` (``tests/test_torch_hnsw_build.py`` holds that
+build against the JAX package's, ``tests/test_torch_hnsw_writes.py`` the
+writes into a built graph).
 
 Tolerances: the prune and the reciprocal gather give identical ids (on
 integer-valued rows, where every f32 product is exact, and on Gaussian
@@ -26,6 +28,7 @@ from embeddinghub_tpu.ops import topk as jtopk
 from embeddinghub_tpu.store import persistence as jax_persistence
 from embeddinghub_tpu.store.version import Version as JaxVersion
 from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
+from embeddinghub_tpu_torch.ops import kmeans as km
 from embeddinghub_tpu_torch.ops import nn_descent as tnnd
 from embeddinghub_tpu_torch.ops import topk as ttopk
 from embeddinghub_tpu_torch.store import persistence
@@ -35,7 +38,6 @@ from embeddinghub_tpu_torch.utils.config import Config
 from _torch_parity import assert_walks_match, walk_terms
 
 DIM, M, EFC = 32, 8, 64
-ITEM5 = "construction and mutation"
 # (metric, rows): 5,000 and 6,000 rows pad the arena (l2 far-offset rows,
 # cosine unit rows from their own generator); 4,096 does not
 BUILDS = {"l2": 5000, "ip": 4096, "cosine": 6000}
@@ -356,40 +358,65 @@ def test_hub_serves_graph_over_grpc():
         service.stop()
 
 
-# --------------------------------------------------- not ported yet (item 5)
+# ----------------------------- the build past exact_build_max (item 5)
 
 
-def test_item5_paths_raise(builds):
-    """What is still not ported raises and leaves the graph as it was: the
-    route (k-means), a cold add past ``exact_build_max`` (the
-    cluster-routed build) and a hub that asks for seed probes."""
+def _failing(*args, **kw):
+    raise RuntimeError("device fault")
+
+
+def test_item5_paths_raise(builds, monkeypatch):
+    """A fault injected into each path of the build past ``exact_build_max``
+    (here into k-means, which all three run) raises and leaves the graph as
+    it was: the cluster-routed build of a cold add, ``build_route`` and the
+    automatic route of a hub started with seed probes.  Once the fault is
+    gone each of them goes through."""
     x, q, _, built = builds["l2"]
     big = HNSWIndex(DIM, device="cpu")
     big.exact_build_max = 3000
+    config = Config(engine="hnsw", hnsw_seed_probes=4, hnsw_route_min=2000)
+    routed = EmbeddingHub.in_memory(engine="hnsw", device="cpu", config=config)
+    version = routed.create_space("g", DIM, "l2").default_version()
+    version.multiset((f"k{j}", x[j]) for j in range(2100))
+    nb0, seen = built._nb0.copy(), built.search(q, 10, ef=64)
     calls = {
-        "build_route": lambda: built.build_route(4),
         "past exact_build_max": lambda: big.add(np.arange(4000), x[:4000]),
-        # the hub refuses a routed configuration when it starts, not at search
-        "hnsw_seed_probes": lambda: EmbeddingHub.in_memory(
-            engine="hnsw", device="cpu", config=Config(engine="hnsw", hnsw_seed_probes=4)),
+        "build_route": lambda: built.build_route(4),
+        # the hub fits its route at the first search past hnsw_route_min
+        "hnsw_seed_probes": lambda: version.nearest(10, vector=x[5]),
     }
+    monkeypatch.setattr(km, "fit_kmeans", _failing)
     for what, call in calls.items():
-        with pytest.raises(NotImplementedError, match=ITEM5):
+        with pytest.raises(RuntimeError, match="device fault"):
             call()
-    assert big.size == 0 and built.size == 5000 and big._graph_size() == 0
+    assert big.size == 0 and big._graph_size() == 0 and big._cluster_route is None
+    assert built.size == 5000 and built._cluster_route is None and built.seed_probes == 0
+    np.testing.assert_array_equal(built._nb0, nb0)
+    np.testing.assert_array_equal(built.search(q, 10, ef=64)[1], seen[1])
+    assert version.size == 2100 and version.index._cluster_route is None
+    monkeypatch.undo()
+    big.add(np.arange(4000), x[:4000])
+    assert big.size == 4000 and big._cluster_stats["clusters"] == 16
+    built.build_route(4)
+    assert built.seed_probes == 4 and (built._cluster_route["medoids"] >= 0).all()
+    built._cluster_route, built.seed_probes = None, 0  # the module's builds stay plain
+    assert version.nearest(10, vector=x[5])[0] == "k5"
+    assert version.index.seed_probes == 4
 
 
-def test_refused_writes_leave_the_store_unchanged():
-    """A cold multiset past ``exact_build_max`` is refused and leaves no key
-    behind; the writes the store once refused now go through: a first
+def test_refused_writes_leave_the_store_unchanged(monkeypatch):
+    """A cold multiset past ``exact_build_max`` whose cluster-routed build
+    fails part way leaves no key behind; then the writes go through: a first
     multiset of 10 rows (host waves), more rows into the built graph, a
     set, a re-set and a delete."""
     hub = EmbeddingHub.in_memory(engine="hnsw", device="cpu")
     version = hub.create_space("g", DIM, "l2").default_version()
     version.index.exact_build_max = 3000
-    with pytest.raises(NotImplementedError, match=ITEM5):
+    monkeypatch.setattr(HNSWIndex, "_routed_pool", _failing)
+    with pytest.raises(RuntimeError, match="device fault"):
         _multiset(version, _data(10, 3500), prefix="big")
-    assert version.size == 0 and "big3" not in version
+    monkeypatch.undo()
+    assert version.size == 0 and "big3" not in version and version.index.size == 0
     assert version.keymap.assign("first") == 0
     version.keymap.release("first")
     _multiset(version, _data(10, 10), prefix="small")
