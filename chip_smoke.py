@@ -41,7 +41,19 @@ Phases, each of which must pass or the script exits non-zero:
    repair's, k=256 at B=4096 over the live prefix of 4,000,000 rows.
    The summary line reports the 1M-row cosine numbers at B=4096 (K1, K2)
    and B=16 (large k), and the graph builds' and the waves' pool cases as
-   entries of their own.
+   entries of their own.  Then K2's candidate pools (QUANT_CASES), the
+   phase 1 of the quantized searches, at every shape phase 11 gives them:
+   the int8 instantiation over the 1M rows' int8 planes (B=4096, k=128 and
+   256, one segment) and over 10,485,760 x 96 normal rows drawn on the
+   card (B=1,024, 40 segments of 262,144 rows, k=256 and 128; B=64 and 8,
+   segments of 2**20 rows, k=256), and K2's bf16 scan as the deep bf16
+   pool; each against its plain version (the same sorted scores, exactly
+   for int8, within 1e-3 for bf16; every id a live row of its segment, one
+   a bin; an id that differs from the plain version's scores, by the plain
+   formula, as the plain version's slot: ids differ only between ties),
+   with its bound
+   (int8 operations at 1,979 TOPS) and library_ms (torch._int_mm of the
+   int8 queries and the plane, per arena chunk; none below 17 queries).
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -124,16 +136,39 @@ Phases, each of which must pass or the script exits non-zero:
    and the routed walk at ef=100 (recall no more than 0.01 below the
    descent's) -> 3 multisets of 4,096 new rows (seed 12), one wave each
    (rows/s) -> save, reopen from the snapshot: the same routed lists.
+11. The quantized flat arenas.  (a) EmbeddingHub(engine="flat-bf16",
+   "flat-int8", "flat-int8x2") on "cuda", each filled with phase 3's 1M x
+   128 cosine rows by Version.multiset in 4,096-row batches ->
+   nearest_batch of 4,096 queries at k=10: the dtype the guard kept, ms a
+   call, device ms, a torch.profiler split of the device time (K2's scan,
+   its select, the rest) and recall@10 against K1's exact oracle (int8 and
+   int8x2 >= 0.95; bf16, and its mode="exact" (K1 over f32 upcasts of the
+   bf16 plane), within 0.001 of the storage's ceiling, the exact top-10
+   over the unit rows rounded to bf16 computed here, with 0.995 printed).
+   (b) benchmarks/capacity.py's Deep-10M cell: its generator copied here
+   (1,024 centers, noise 0.35, one default_rng(0): centers, 10,000,000 x 96
+   rows in steps of 2,000,000, a 1,024-query batch, 256 recall queries) ->
+   an in-memory EmbeddingHub(engine="flat-int8"), one multiset of the keyed
+   rows -> the first search runs the guard, which must escalate int8 ->
+   int8x2 (its sampled recall printed) -> nearest_batch of the 1,024 at
+   k=10 (ms, device ms and its split) -> recall@10 of the 256 in a batch of
+   1,024 padded with zeros against K1's exact oracle over the f32 rows,
+   >= 0.977 -> the same rows as an int8 FlatIndex without the guard and as
+   a bf16 one (recall printed) -> audit_quantization(bar=0.95, nq=64) ->
+   100,000 rows streamed in multisets of 8,192, a search after each (the
+   dirty-row scatter): 64 of them must find themselves -> the version's
+   snapshot (store/persistence.save_version, what hub.save writes for it)
+   and a reopen that must quantize nothing and give the same lists.
 
 The launch counters are zeroed just before each path (main: phases 3-4;
-restore: 5; offline: 7; graph: 8; writes: 9; cluster: 10) and read just
-after it; the crash
+restore: 5; offline: 7; graph: 8; writes: 9; cluster: 10; quantized: 11)
+and read just after it; the crash
 path's (6) are those its restarted server process reports.  Each path must
 have launched the kernels it runs.  The second-to-last line is a JSON
 summary of the kernels, an entry per summary case: "launches" is the main
 path's count (the graph path's for the build's pool cases, the writes
-path's for the waves', the cluster path's for the cluster-routed build's),
-"paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
+path's for the waves', the cluster path's for the cluster-routed build's,
+the quantized path's for the pools), "paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
 numpy with a fixed seed.
 """
 
@@ -204,6 +239,30 @@ ROUTED_TAILS = ((1145, 20_000), (37, 9_000))
 # bars allow 0.01 for the sample of queries)
 BIG_RECALL = {200: 0.97, 100: 0.91}
 ROUTE_PROBES = 16
+# Phase 11, the quantized arenas.  (a) The 1M x 128 cosine rows of phase 3
+# in a flat-bf16, a flat-int8 and a flat-int8x2 store, recall@10 bars: int8
+# and int8x2 the quantization guard's; bf16 the main path's 0.995 is the
+# bf16 storage's own ceiling on these rows, so the bf16 store (and its mode
+# "exact", K1 over f32 upcasts) is held to that ceiling less
+# QUANT_BF16_GAP, and 0.995 is printed.  The ceiling is computed here, not
+# by the port: the exact top-10 of the f32 queries over the unit rows
+# rounded to bf16 (exact_oracle).
+QUANT_BARS = {"flat-bf16": 0.995, "flat-int8": 0.95, "flat-int8x2": 0.95}
+QUANT_BF16_GAP = 0.001
+# (b) benchmarks/capacity.py's Deep-10M cell (benchmarks/RESULTS.md:117-172),
+# its widths and scale: 10,000,000 x 96 cosine rows around 1,024 centers,
+# noise 0.35 (near duplicates); a 1,024-query batch; 256 recall queries
+# searched in a batch of 1,024 padded with zeros (capacity.py:163-166), so
+# that the deep path's chunk is the reference's, 262,144 rows, and its pool
+# 256 candidates a chunk; then 100,000 rows streamed in multisets of 8,192.
+DEEP_ROWS, DEEP_DIMS, DEEP_CENTERS, DEEP_NOISE = 10_000_000, 96, 1024, 0.35
+DEEP_CAP = 10 * (1 << 20)  # the capacity 10,000,000 rows take (1M-row blocks)
+DEEP_B, DEEP_RECALL_Q, DEEP_GEN_STEP = 1024, 256, 2_000_000
+DEEP_CHUNK = 1 << 18  # FlatIndex._deep_chunk of a 1,024-query batch
+DEEP_STREAM, DEEP_WAVE, DEEP_SELF = 100_000, 8192, 64
+# The reference served recall@10 0.9871 after its guard escalated int8 to
+# int8x2 (RESULTS.md:159-162); the bar allows 0.01 for the sample.
+DEEP_RECALL = 0.977
 # (kernel, metric, B, k, exact, capacity, live rows) compared with its plain
 # version, at every shape a path gives it; exact is K1's operand precision
 # (None for K2, which is always bf16).
@@ -236,9 +295,42 @@ KERNEL_CASES = (
     ("fused_topk_search_large_k", "l2", 1, BIG_K, True, WIRE_CAP, WIRE_ROWS),   # wire
     ("fused_topk_search_large_k", "cosine", BIG_B, BIG_K, True, CAP, ROWS),     # restore
 )
+# K2's candidate pools (phase 11's phase 1) compared with their plain
+# version, at every shape phase 11 gives them: (kernel, metric, B, k,
+# capacity, live rows, dims, segment rows or None for one segment).  The
+# int8 pools: the shallow flat-int8 and flat-int8x2 stores at 1M (k * 8 and
+# k * 16 of a 16-wide fetch); the deep int8x2 arena at B=1,024 (chunks of
+# 262,144 rows, 256 a chunk), its guard-off int8 twin (128 a chunk), the
+# audit's 64 queries and the stream's searches of 8 (chunks of 2**20 rows
+# for their padded batches of 64 and 8); the deep bf16 arena's pool is K2's
+# bf16 scan.
+QUANT_CASES = (
+    ("fused_topk_search_v2_int8", "cosine", MAIN_B, 128, CAP, ROWS, DIMS, None),
+    ("fused_topk_search_v2_int8", "cosine", MAIN_B, 256, CAP, ROWS, DIMS, None),
+    ("fused_topk_search_v2_int8", "cosine", DEEP_B, 256, DEEP_CAP, DEEP_ROWS, DEEP_DIMS,
+     DEEP_CHUNK),
+    ("fused_topk_search_v2_int8", "cosine", DEEP_B, 128, DEEP_CAP, DEEP_ROWS, DEEP_DIMS,
+     DEEP_CHUNK),
+    ("fused_topk_search_v2_int8", "cosine", 64, 256, DEEP_CAP, DEEP_ROWS, DEEP_DIMS, 1 << 20),
+    ("fused_topk_search_v2_int8", "cosine", 8, 256, DEEP_CAP, DEEP_ROWS + DEEP_STREAM,
+     DEEP_DIMS, 1 << 20),
+    ("fused_topk_search_v2", "cosine", DEEP_B, 128, DEEP_CAP, DEEP_ROWS, DEEP_DIMS,
+     DEEP_CHUNK),
+)
+# The quantized cases the summary line reports: (kernel, B, k, capacity,
+# segment) -> (label, the reference's XLA scan it replaces).
+QUANT_SUMMARY = {
+    ("fused_topk_search_v2_int8", MAIN_B, 128, CAP, None):
+        ("int8 pool", "embeddinghub_tpu/ops/topk.py:301-313"),
+    ("fused_topk_search_v2_int8", DEEP_B, 256, DEEP_CAP, DEEP_CHUNK):
+        ("deep int8 pool", "embeddinghub_tpu/ops/topk.py:697-710"),
+    ("fused_topk_search_v2", DEEP_B, 128, DEEP_CAP, DEEP_CHUNK):
+        ("deep bf16 pool", "embeddinghub_tpu/ops/topk.py:697-710"),
+}
 # Published peaks of one H100 SXM (dense): bf16 and TF32 tensor cores, f32
 # FMA outside them, HBM3.
 PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
+PEAK_INT8 = 1979e12  # int8 tensor cores, dense
 LIBRARY_CHUNK_BYTES = 1 << 30  # one [B, chunk] product of library_ms at most
 # The cases whose numbers the summary line reports, an entry each: (metric,
 # B, k, exact, capacity) -> (kernel, label).
@@ -259,7 +351,9 @@ SUMMARY = {
 # the path whose launches a summary case reports
 CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "graph",
              "wave pool": "writes", "wave upper-layer pool": "writes",
-             "routed pool": "cluster", "boundary repair pool": "cluster"}
+             "routed pool": "cluster", "boundary repair pool": "cluster",
+             "int8 pool": "quantized", "deep int8 pool": "quantized",
+             "deep bf16 pool": "quantized"}
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
 
@@ -478,15 +572,163 @@ def phase_kernels(torch, x_host, report):
     torch.cuda.empty_cache()
 
 
-def exact_oracle(torch, x_dev, queries, k, chunk=1 << 17, dead=()):
+def pool_bound(name, b, rows, cap, dims, k, n_seg):
+    """(ms, "operations" or "bytes", unit) of a candidate pool: 2*B*rows*D
+    products and sums over the live rows, int8 (1,979 TOPS) or bf16
+    tensor cores; the bytes of each input read once (the live rows' plane,
+    int8 or bf16, their x_sq and, int8, scales; the valid mask; the f32
+    queries) and the [B, segments, k] keys written once."""
+    i8 = name == "fused_topk_search_v2_int8"
+    ops_ms = 2 * b * rows * dims / (PEAK_INT8 if i8 else PEAK_BF16) * 1e3
+    nbytes = (rows * (dims * (1 if i8 else 2) + (8 if i8 else 4)) + cap + b * dims * 4
+              + b * n_seg * k * 8)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", "int8" if i8 else "bf16"
+    return bytes_ms, "bytes", "HBM"
+
+
+def library_pool(torch, qf, plane, i8):
+    """The pool's product alone as one PyTorch call per arena chunk of at
+    most LIBRARY_CHUNK_BYTES of output: torch._int_mm of the int8 queries
+    and the hi plane (int32 sums; it takes more than 16 queries), or a bf16
+    matmul with bf16 output; None where no such call takes the shape."""
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+
+    if i8:
+        if qf.shape[0] <= 16:
+            return None
+        lhs = F.quantize_queries(qf, "cosine")[0][:, :qf.shape[1]].contiguous()
+        mm = torch._int_mm
+    else:
+        lhs, mm = F.arena_bf16(qf), torch.mm
+    chunk = max(F.GROUP, LIBRARY_CHUNK_BYTES // (4 * lhs.shape[0]))
+
+    def run():
+        for s in range(0, plane.shape[0], chunk):
+            mm(lhs, plane[s:s + chunk].T)
+    return run
+
+
+def phase_quant_kernels(torch, x_host, report):
+    """Phase 2, K2's candidate pools: the kernel (int8 instantiation, or
+    the bf16 scan) against its plain version at QUANT_CASES, on the 1M rows
+    of phase 3 and on 10,485,760 x 96 normal rows drawn on the card."""
+    from embeddinghub_tpu_torch.index.flat import quantize_planes
+    from embeddinghub_tpu_torch.ops import distance as D
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 3)
+    q_all = D.normalize(torch.randn((max(c[2] for c in QUANT_CASES), DIMS),
+                                    generator=gen, device=CARD))
+    for cap, dims in sorted({(c[4], c[6]) for c in QUANT_CASES}):
+        raw = torch.zeros((cap, dims), device=CARD)  # rows past the data: dead
+        if (cap, dims) == (CAP, DIMS):
+            raw[:ROWS] = torch.from_numpy(x_host).to(CARD)
+        else:
+            raw[:max(c[5] for c in QUANT_CASES if c[4] == cap)] = torch.randn(
+                (max(c[5] for c in QUANT_CASES if c[4] == cap), dims), generator=gen,
+                device=CARD)
+        i8p = quantize_planes(raw, "cosine", "int8")
+        xb = F.arena_bf16(D.normalize(raw))
+        del raw
+        for name, metric, b, k, c_cap, rows, c_dims, seg in QUANT_CASES:
+            if (c_cap, c_dims) != (cap, dims):
+                continue
+            i8 = name == "fused_topk_search_v2_int8"
+            plane = i8p["hi"] if i8 else xb
+            args = (D.normalize(q_all[:b, :dims]), plane,
+                    torch.arange(cap, device=CARD) < rows, i8p["sq"], i8p["sc"] if i8 else None)
+            kw = dict(k=k, metric=metric, seg=seg)
+            got = F.pool_candidates(*args, **kw)
+            want = F.pool_candidates_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err, swaps = check_pool(torch, f"{name} B={b} cap={cap} k={k}", args, metric,
+                                    seg, got, want, i8)
+            ms = device_ms(torch, lambda: F.pool_candidates(*args, **kw))
+            plain_ms = device_ms(torch, lambda: F.pool_candidates_reference(*args, **kw))
+            lib = library_pool(torch, args[0], plane[:rows], i8)
+            library_ms = None if lib is None else device_ms(torch, lib)
+            n_seg = got[0].shape[1]
+            bound_ms, bound_by, unit = pool_bound(name, b, rows, cap, dims, k, n_seg)
+            tops = 2 * b * rows * dims / (ms * 1e-3) / 1e12
+            print(f"[kernels] {name} pool {metric} B={b} cap={cap} rows={rows} D={dims} "
+                  f"k={k} segment={seg or cap} ({n_seg} segments): max_abs_err={err:.3g} "
+                  f"tie_swaps={swaps} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                  f"bound_ms={bound_ms:.3f} ({bound_by}: {unit}) tops={tops:.1f} "
+                  f"library_ms={'null' if library_ms is None else f'{library_ms:.3f}'}",
+                  flush=True)
+            worst = report.setdefault(name, {"max_abs_err": 0.0})
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            label = QUANT_SUMMARY.get((name, b, k, cap, seg))
+            if label is not None:
+                report[(name, label[0])] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bound_unit=unit, fma_bound_ms=None,
+                    library_ms=library_ms, replaces=label[1],
+                    shape=f"{metric} B={b} k={k} cap={cap} rows={rows} D={dims} "
+                          f"segment={seg or cap}")
+        del i8p, xb, plane, args, got, want
+        torch.cuda.empty_cache()
+
+
+def check_pool(torch, label, args, metric, seg, got, want, i8):
+    """K2's pool (scores, ids ``[B, segments, k]``) against its plain
+    version on the same inputs.  The sorted scores agree: exactly for int8
+    (exact integer sums, the plain version's order of operations), within
+    1e-3 for bf16 (f32 sums in another order).  Every pooled id is a live
+    row of its own segment, no bin gives two, and wherever an id differs
+    from the plain version's, the plain formula scores that row as the
+    plain version scored its slot (int8: exactly; bf16: within 1e-3): ids
+    differ only between tied scores.  Returns the largest score error and
+    the count of differing ids."""
+    qf, plane, valid, x_sq, scales = args
+    (s, i), (rs, ri) = got, want
+    fin = torch.isfinite(rs)
+    check(torch.equal(fin, torch.isfinite(s)) and torch.equal(fin, i >= 0),
+          f"{label}: finite slots")
+    tol = 0.0 if i8 else 1e-3 * max(1.0, float(rs[fin].abs().max()) if fin.any() else 1.0)
+    err = float((s[fin] - rs[fin]).abs().max()) if fin.any() else 0.0
+    check(err <= tol, f"{label}: scores differ by {err}")
+    ids = i.long()
+    check(bool(valid[ids[fin]].all()), f"{label}: a dead row was pooled")
+    seg_of = torch.arange(s.shape[1], device=ids.device)[None, :, None]
+    check(bool(((ids // (seg or plane.shape[0]) == seg_of) | ~fin).all()),
+          f"{label}: a row pooled in another segment")
+    bins = torch.where(fin, (ids // 128) * 4 + (ids % 8) // 2, -1).sort(dim=2).values
+    check(not bool(((bins[..., 1:] == bins[..., :-1]) & (bins[..., 1:] >= 0)).any()),
+          f"{label}: a bin pooled twice")
+    swapped = (i != ri) & fin
+    if swapped.any():
+        qb = swapped.nonzero()[:, 0]
+        rows = ids[swapped]
+        dims = qf.shape[1]
+        bias = x_sq[rows] if metric == "l2" else torch.zeros_like(x_sq[rows])
+        if i8:
+            from embeddinghub_tpu_torch.ops.fused_topk import quantize_queries
+            qq, qs = quantize_queries(qf, metric)
+            acc = (qq[qb, :dims].float() * plane[rows, :dims].float()).sum(1)
+            score = bias - (qs[qb] * scales[rows]) * acc
+        else:
+            dots = (qf[qb].bfloat16().float() * plane[rows, :dims].float()).sum(1)
+            score = bias - 2.0 * dots if metric == "l2" else bias - dots
+        off = float((score - rs[swapped]).abs().max())
+        check(off <= tol, f"{label}: {int(swapped.sum())} ids differ, one scores "
+                          f"{off:.3g} away from the plain version's slot")
+    return err, int(swapped.sum())
+
+
+def exact_oracle(torch, x_dev, queries, k, chunk=1 << 17, dead=(), unit_rows=False):
     """Exact cosine top-k on the card, in chunks, independent of the port:
     f32 products (TF32 is off for the whole script).  Rows in ``dead`` are
-    left out."""
+    left out.  ``unit_rows``: the rows are scored as they are (already
+    normalized, or rounded from normalized rows), not normalized here."""
     qn = queries / queries.norm(dim=1, keepdim=True).clamp(min=1e-30)
     best_d = best_i = None
     for s in range(0, x_dev.shape[0], chunk):
         xs = x_dev[s:s + chunk]
-        xs = xs / xs.norm(dim=1, keepdim=True).clamp(min=1e-30)
+        if not unit_rows:
+            xs = xs / xs.norm(dim=1, keepdim=True).clamp(min=1e-30)
         d = 1 - qn @ xs.T
         for r in dead:
             if s <= r < s + xs.shape[0]:
@@ -1403,6 +1645,300 @@ def phase_cluster(torch, launches, base):
     torch.cuda.empty_cache()
 
 
+def deep_rows(rng, centers, count: int) -> np.ndarray:
+    """``count`` rows of benchmarks/capacity.py's ``gen_chunk`` (:48-59),
+    the same draws from the same generator: a center each, plus noise."""
+    assign = rng.integers(0, DEEP_CENTERS, count)
+    out = centers[assign] + DEEP_NOISE * rng.standard_normal(
+        (count, DEEP_DIMS)).astype(np.float32)
+    return out.astype(np.float32)
+
+
+def recall_at(got, want) -> float:
+    return float(np.mean([len(set(g.tolist()) & set(w.tolist())) / want.shape[1]
+                          for g, w in zip(got, want)]))
+
+
+def device_split(torch, fn, runs: int = 3) -> str:
+    """Where a call's time goes: a torch.profiler trace of ``runs`` calls,
+    the device time of K2's scan, its select, the row bias and scale
+    kernels, and everything else (the queries' quantization, the rerank's
+    gathers, products and top-k, copies), against the wall time, with the
+    device's idle share (1 - busy / wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    parts = {"scan": 0.0, "select": 0.0, "bias": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        part = ("scan" if "k2_scan_kernel" in name else "select" if "k2_select" in name
+                else "bias" if "row_bias" in name or "row_scale" in name
+                or "k2_queries" in name else "other")
+        parts[part] += e.time_range.elapsed_us()
+    busy = sum(parts.values())
+    return (f"wall {wall_us / runs / 1e3:.3f} ms a call, device busy "
+            f"{busy / runs / 1e3:.3f} (" + ", ".join(
+                f"{k} {v / runs / 1e3:.3f}" for k, v in parts.items())
+            + f"), idle share {1 - busy / wall_us:.3f}")
+
+
+def phase_quantized(torch, x_host, launches):
+    """Phase 11: the quantized flat arenas, shallow at 1M x 128 and the
+    Deep-10M near-duplicate cell."""
+    from embeddinghub_tpu_torch.index import flat as flat_mod
+    from embeddinghub_tpu_torch.ops import distance as D
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+    from embeddinghub_tpu_torch.store import persistence
+    from embeddinghub_tpu_torch.store.hub import EmbeddingHub
+
+    t_phase = time.perf_counter()
+    # (a) 1M x 128 cosine, one store per engine, K1's exact oracle
+    queries = np.random.default_rng(SEED + 11).standard_normal((MAIN_B, DIMS),
+                                                               dtype=np.float32)
+    x_dev = F.arena_f32(D.normalize(torch.from_numpy(x_host).to(CARD)))
+    ones = torch.ones(ROWS, dtype=torch.bool, device=CARD)
+    _, oracle = F.exact_topk(torch.from_numpy(queries).to(CARD), x_dev, ones,
+                             D.sqnorms(x_dev), k=MAIN_K, metric="cosine")
+    oracle = oracle.cpu().numpy()
+    del x_dev, ones
+    x_bf = torch.from_numpy(x_host).to(CARD)
+    x_bf = (x_bf / x_bf.norm(dim=1, keepdim=True).clamp(min=1e-30)).bfloat16().float()
+    bf16_ceiling = recall_at(exact_oracle(torch, x_bf, torch.from_numpy(queries).to(CARD),
+                                          MAIN_K, unit_rows=True)[1].cpu().numpy(), oracle)
+    del x_bf
+    keys = [f"k{j}" for j in range(ROWS)]
+    for engine, bar in QUANT_BARS.items():
+        hub = EmbeddingHub.in_memory(engine=engine, device=CARD)
+        version = hub.create_space("quant", DIMS, "cosine").default_version()
+        t0 = time.perf_counter()
+        for s in range(0, ROWS, FLUSH):
+            version.multiset(zip(keys[s:s + FLUSH], x_host[s:s + FLUSH]))
+        ingest_s = time.perf_counter() - t0
+        before = dict(launches)
+        t0 = time.perf_counter()
+        got = version.nearest_batch(queries, MAIN_K)
+        first_s = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = version.nearest_batch(queries, MAIN_K)
+            times.append(time.perf_counter() - t0)
+        check(again == got, f"{engine}: repeated nearest_batch differs")
+        index = version.index
+        dev_ms = device_ms(torch, lambda: index._search_device(queries, MAIN_K, "auto", None))
+        ran = {n: launches[n] - before[n] for n in launches if launches[n] > before[n]}
+        split = device_split(torch, lambda: version.nearest_batch(queries, MAIN_K))
+        hits = sum(len({int(k[1:]) for k in r} & set(o)) for r, o in zip(got, oracle))
+        recall = hits / (MAIN_B * MAIN_K)
+        print(f"[quantized] {engine} 1M x {DIMS} cosine: multiset {ingest_s:.2f} s; storage "
+              f"the guard kept: {index.storage_dtype} (sampled recall@10 "
+              f"{index.guard_recalls}); nearest_batch B={MAIN_B} k={MAIN_K}: first "
+              f"(guard, quantize, upload) {first_s * 1e3:.1f} ms, steady "
+              f"{statistics.median(times) * 1e3:.1f} ms, device {dev_ms:.3f} ms a search; "
+              f"recall@{MAIN_K} {recall:.5f} (bar {bar}); kernels {ran}; nearest_batch: "
+              f"{split}", flush=True)
+        if engine == "flat-bf16":
+            before = launches["fused_topk_search"]
+            t0 = time.perf_counter()
+            exact = index.search(queries, MAIN_K, mode="exact")[1]
+            exact_s = time.perf_counter() - t0
+            check(launches["fused_topk_search"] > before, "bf16 exact did not launch K1")
+            exact_recall = recall_at(exact, oracle)
+            print(f"[quantized] flat-bf16: the bf16 storage's ceiling (the exact top-"
+                  f"{MAIN_K} over the bf16-rounded unit rows, computed here) recall@"
+                  f"{MAIN_K} {bf16_ceiling:.5f}; mode=exact (K1 over f32 upcasts of the "
+                  f"bf16 plane) {exact_s * 1e3:.1f} ms, recall@{MAIN_K} {exact_recall:.5f}; "
+                  f"auto {recall:.5f} is {'at or above' if recall >= bar else 'below'} "
+                  f"{bar}", flush=True)
+            bar = bf16_ceiling - QUANT_BF16_GAP
+            check(exact_recall >= bar, f"flat-bf16 mode=exact: recall@{MAIN_K} "
+                                       f"{exact_recall} < {bar}")
+        check(recall >= bar, f"{engine}: recall@{MAIN_K} {recall} < {bar}")
+        del hub, version, index
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) Deep-10M: capacity.py's rows in its order, one generator
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    centers = (3.0 * rng.standard_normal((DEEP_CENTERS, DEEP_DIMS))).astype(np.float32)
+    x = np.empty((DEEP_ROWS, DEEP_DIMS), np.float32)
+    for s in range(0, DEEP_ROWS, DEEP_GEN_STEP):
+        x[s:s + DEEP_GEN_STEP] = deep_rows(rng, centers, min(DEEP_GEN_STEP, DEEP_ROWS - s))
+    qv = deep_rows(rng, centers, DEEP_B)
+    qr = deep_rows(rng, centers, DEEP_RECALL_Q)
+    padded = np.concatenate([qr, np.zeros((DEEP_B - DEEP_RECALL_Q, DEEP_DIMS), np.float32)])
+    print(f"[quantized] deep: {DEEP_ROWS} x {DEEP_DIMS} near-duplicate rows and "
+          f"{DEEP_B + DEEP_RECALL_Q} queries generated on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    hub = EmbeddingHub.in_memory(engine="flat-int8", device=CARD)
+    version = hub.create_space("deep", DEEP_DIMS, "cosine").default_version()
+    index = version.index
+    t0 = time.perf_counter()
+    version.multiset(zip((f"d{j}" for j in range(DEEP_ROWS)), x))
+    print(f"[quantized] deep: one multiset of {DEEP_ROWS} keyed rows "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(index.capacity == DEEP_CAP and index.storage_dtype == "int8",
+          f"capacity {index.capacity}, storage {index.storage_dtype}")
+    before = dict(launches)
+    t0 = time.perf_counter()
+    index.search(qv, MAIN_K)
+    torch.cuda.synchronize()
+    print(f"[quantized] deep: first search (guard, quantize and upload, search) "
+          f"{time.perf_counter() - t0:.2f} s; the guard escalated int8 -> "
+          f"{index.storage_dtype} at a sampled recall@10 of "
+          f"{index.guard_recalls.get('int8', float('nan')):.4f} ({index.guard_recalls})",
+          flush=True)
+    check(index.storage_dtype == "int8x2", f"the guard kept {index.storage_dtype}")
+    check(launches["fused_topk_search_v2_int8"] > before["fused_topk_search_v2_int8"],
+          "the deep search did not launch K2's int8 pool")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        version.nearest_batch(qv, MAIN_K)
+        times.append(time.perf_counter() - t0)
+    dev_ms = device_ms(torch, lambda: index._search_device(qv, MAIN_K, "auto", None))
+    print(f"[quantized] deep: nearest_batch B={DEEP_B} k={MAIN_K} median of 3 "
+          f"{statistics.median(times) * 1e3:.1f} ms ({DEEP_B / statistics.median(times):.0f} "
+          f"queries/s); device {dev_ms:.3f} ms a search (chunks of "
+          f"{index._deep_chunk(DEEP_B)} rows); nearest_batch: "
+          f"{device_split(torch, lambda: version.nearest_batch(qv, MAIN_K))}", flush=True)
+
+    # the exact oracle: K1 over the f32 rows on the card
+    x_dev = F.arena_f32(D.normalize(torch.from_numpy(x).to(CARD)))
+    _, oracle = F.exact_topk(torch.from_numpy(qr).to(CARD), x_dev,
+                             torch.ones(DEEP_ROWS, dtype=torch.bool, device=CARD),
+                             D.sqnorms(x_dev), k=MAIN_K, metric="cosine")
+    oracle = oracle.cpu().numpy()
+    del x_dev
+    torch.cuda.empty_cache()
+    got = index.search(padded, MAIN_K)[1][:DEEP_RECALL_Q]
+    recall = recall_at(got, oracle)
+    print(f"[quantized] deep: recall@{MAIN_K} of {DEEP_RECALL_Q} queries (in a padded "
+          f"batch of {DEEP_B}) {recall:.4f} on {index.storage_dtype} (bar {DEEP_RECALL})",
+          flush=True)
+    check(recall >= DEEP_RECALL, f"deep recall@{MAIN_K} {recall} < {DEEP_RECALL}")
+    for dtype in ("int8", "bfloat16"):  # the same rows without the guard, and in bf16
+        other = flat_mod.FlatIndex(DEEP_DIMS, "cosine", capacity=DEEP_ROWS,
+                                   storage_dtype=dtype, quant_guard=False, device=CARD)
+        other.add(np.arange(DEEP_ROWS), x)
+        t0 = time.perf_counter()
+        o_got = other.search(padded, MAIN_K)[1][:DEEP_RECALL_Q]
+        print(f"[quantized] deep: a {dtype} FlatIndex (guard off) over the same rows: "
+              f"recall@{MAIN_K} {recall_at(o_got, oracle):.4f} (first search "
+              f"{time.perf_counter() - t0:.2f} s)", flush=True)
+        del other
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report = version.audit_quantization(bar=0.95, nq=64)
+    print(f"[quantized] deep: audit_quantization(bar=0.95, nq=64) in "
+          f"{time.perf_counter() - t0:.1f} s: {report}", flush=True)
+
+    # stream 100,000 rows, a search after each multiset (the dirty-row scatter)
+    streamed = []
+    t0 = time.perf_counter()
+    for s in range(0, DEEP_STREAM, DEEP_WAVE):
+        rows = deep_rows(rng, centers, min(DEEP_WAVE, DEEP_STREAM - s))
+        streamed.append(rows)
+        version.multiset(zip((f"s{s + j}" for j in range(len(rows))), rows))
+        check(index._dirty_rows and not index._needs_full_sync, "not a scatter")
+        version.nearest_batch(rows[:8], MAIN_K)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    streamed = np.concatenate(streamed)
+    sample = rng.integers(DEEP_ROWS, DEEP_ROWS + DEEP_STREAM, DEEP_SELF)
+    q_self = np.concatenate([streamed[sample - DEEP_ROWS],
+                             np.zeros((DEEP_B - DEEP_SELF, DEEP_DIMS), np.float32)])
+    hit = index.search(q_self, MAIN_K)[1][:DEEP_SELF]
+    self_recall = float(np.mean([sample[j] in hit[j] for j in range(DEEP_SELF)]))
+    print(f"[quantized] deep: streamed {DEEP_STREAM} rows in multisets of {DEEP_WAVE}, a "
+          f"search after each: {stream_s:.2f} s ({DEEP_STREAM / stream_s:.0f} rows/s); "
+          f"self-recall of {DEEP_SELF} streamed rows {self_recall}", flush=True)
+    check(self_recall == 1.0, f"streamed self-recall {self_recall}")
+    check(version.size == DEEP_ROWS + DEEP_STREAM, f"size {version.size}")
+
+    # the version's snapshot (what hub.save writes for it), then a reopen
+    want = index.search(qv, MAIN_K)[1]
+    quantized = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deep_") as tmp:
+        t0 = time.perf_counter()
+        persistence.save_version(Path(tmp) / "deep", version)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(Path(tmp))
+        del hub, version, index
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        version = persistence.load_version(Path(tmp) / "deep", device=CARD)
+        index = version.index
+        plain_planes = flat_mod.quantize_planes
+        flat_mod.quantize_planes = lambda *a, **kw: quantized.append(1) or plain_planes(*a, **kw)
+        try:
+            t1 = time.perf_counter()
+            got = index.search(qv, MAIN_K)[1]
+            first_s = time.perf_counter() - t1
+        finally:
+            flat_mod.quantize_planes = plain_planes
+        reopen_s = time.perf_counter() - t0
+        check(index.storage_dtype == "int8x2" and not quantized,
+              f"the reopen quantized again ({len(quantized)} blocks, {index.storage_dtype})")
+        check(np.array_equal(got, want), "the lists differ after the reopen")
+        print(f"[quantized] deep: snapshot {save_s:.2f} s ({nbytes} bytes, q_* planes "
+              f"included); reopen and first search {reopen_s:.2f} s (search with the "
+              f"planes' upload {first_s:.2f} s, nothing quantized): the same lists",
+              flush=True)
+        del version, index
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[quantized] phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+REPLACES = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
+            "fused_topk_search_v2": "embeddinghub_tpu/ops/pallas_topk.py:270",
+            "fused_topk_search_large_k": "embeddinghub_tpu/ops/pallas_topk.py:124"}
+SOURCES = {"fused_topk_search": "embeddinghub_tpu_torch/csrc/k1_scan.cu",
+           "fused_topk_search_v2": "embeddinghub_tpu_torch/csrc/k2_scan.cu",
+           "fused_topk_search_large_k": "embeddinghub_tpu_torch/csrc/k1_scan.cu",
+           "fused_topk_search_v2_int8": "embeddinghub_tpu_torch/csrc/k2_scan.cu"}
+
+
+def summary_entries(report, paths) -> list:
+    """An entry per summary case.  launches: the count of the path the case
+    belongs to (CASE_PATH: the main path's; the graph path's for the
+    build's pool shapes, the writes path's for the waves', the quantized
+    path's for the pools); paths: each path's own.  A main entry's
+    max_abs_err is its kernel's largest over every case.  The int8 pools
+    replace the reference's XLA scans, which their case names; K2's bf16
+    scan, a pool's too, the Pallas K2."""
+    entries = []
+    cases = [*SUMMARY.values(),
+             *((key[0], label) for key, (label, _) in QUANT_SUMMARY.items())]
+    for name, label in cases:
+        path = CASE_PATH[label]
+        numbers = dict(report[(name, label)])
+        if label == "main":
+            numbers["max_abs_err"] = report[name]["max_abs_err"]
+        entries.append({
+            "name": name, "case": label, "route": "cuda", "source": SOURCES[name],
+            "replaces": (numbers["replaces"] if name == "fused_topk_search_v2_int8"
+                         else REPLACES[name]),
+            "launches": paths[path][name],
+            "paths": {p: counts.get(name, 0) for p, counts in paths.items()},
+            **{key: numbers[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
+                "fma_bound_ms", "library_ms", "shape")}})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1429,6 +1965,7 @@ def main() -> int:
     x_host = rng.standard_normal((ROWS, DIMS), dtype=np.float32)
     report: dict = {}
     phase_kernels(torch, x_host, report)
+    phase_quant_kernels(torch, x_host, report)
 
     # Each path: counts zeroed just before it, read just after it.
     paths = {}
@@ -1436,13 +1973,14 @@ def main() -> int:
     phase_main(torch, x_host, F.LAUNCHES)
     wire = phase_wire(torch, x_host)
     paths["main"] = dict(F.LAUNCHES)
-    needs = {"main": tuple(F.LAUNCHES) if wire else ("fused_topk_search",
-                                                     "fused_topk_search_v2"),
-             "restore": tuple(F.LAUNCHES),
+    flat = ("fused_topk_search", "fused_topk_search_v2", "fused_topk_search_large_k")
+    needs = {"main": flat if wire else flat[:2],
+             "restore": flat,
              "offline": ("fused_topk_search_v2",),
              "graph": ("fused_topk_search",),
              "writes": ("fused_topk_search",),
              "cluster": ("fused_topk_search",),
+             "quantized": ("fused_topk_search_v2_int8", "fused_topk_search_v2"),
              "crash": ("fused_topk_search",)}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
                       ("offline", lambda: phase_offline(torch, x_host))):
@@ -1467,6 +2005,10 @@ def main() -> int:
         F.reset_launches()
         phase_cluster(torch, F.LAUNCHES, Path(tmp) / "store")
         paths["cluster"] = dict(F.LAUNCHES)
+    # the quantized path: the flat-bf16/int8/int8x2 stores and Deep-10M (phase 11)
+    F.reset_launches()
+    phase_quantized(torch, x_host, F.LAUNCHES)
+    paths["quantized"] = dict(F.LAUNCHES)
     # the crash path's kernels run in the server subprocess, which reports them
     crash = phase_crash(torch, x_host)
     if crash is not None:
@@ -1476,31 +2018,7 @@ def main() -> int:
         for name in needs[path]:
             check(counts.get(name, 0) > 0, f"{name} was not launched on the {path} path")
 
-    replaces = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
-                "fused_topk_search_v2": "embeddinghub_tpu/ops/pallas_topk.py:270",
-                "fused_topk_search_large_k": "embeddinghub_tpu/ops/pallas_topk.py:124"}
-    sources = {"fused_topk_search": "embeddinghub_tpu_torch/csrc/k1_scan.cu",
-               "fused_topk_search_v2": "embeddinghub_tpu_torch/csrc/k2_scan.cu",
-               "fused_topk_search_large_k": "embeddinghub_tpu_torch/csrc/k1_scan.cu"}
-    # An entry per summary case.  launches: the count of the path the case
-    # belongs to (CASE_PATH: the main path's; the graph path's for the
-    # build's pool shapes, the writes path's for the waves');
-    # paths: each path's own.  A main entry's max_abs_err is its kernel's
-    # largest over every case.
-    entries = []
-    for name, label in SUMMARY.values():
-        path = CASE_PATH[label]
-        numbers = dict(report[(name, label)])
-        if label == "main":
-            numbers["max_abs_err"] = report[name]["max_abs_err"]
-        entries.append({
-            "name": name, "case": label, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": paths[path][name],
-            "paths": {p: counts.get(name, 0) for p, counts in paths.items()},
-            **{key: numbers[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
-                "fma_bound_ms", "library_ms", "shape")}})
-    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"kernels": summary_entries(report, paths)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

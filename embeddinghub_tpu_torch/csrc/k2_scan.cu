@@ -53,11 +53,49 @@
 //     run together and read it from L2, and the slice count fills the SMs
 //     at any B.
 //
+//
+// The candidate pools of the quantized arenas take the same entry
+// (ehtorch_k2) and scan with two changes, both template parameters:
+//  * BIN, the rows a key stands for.  The main path keeps one winner per
+//    128-row group (BIN = 128, the quad shuffle above).  A pool keeps one
+//    per 32 strided rows: in the wgmma accumulator layout a consumer thread
+//    holds columns 8j + 2t + {0, 1} (j < 16) of each of its two queries, so
+//    its own minimum, with no shuffle, is one winner of the 32 rows
+//    {8j + 2t + h} of the tile: four keys a tile (POOL_BIN).  On clustered
+//    rows one winner per 128 rows drops a true neighbour whenever a
+//    cluster mate shares its group; four bins a tile make that four times
+//    rarer.
+//  * I8, the operands.  The int8 arena's hi plane (index/flat.py) and the
+//    queries quantized per row by the wrapper, qq = clip(round(q / qscale),
+//    +-127), qscale = max|q| / 127 (embeddinghub_tpu/ops/topk.py:297-300),
+//    multiply in wgmma.mma_async m64n128k32.s32.s8.s8, both operands from
+//    shared memory, K-major (sm_90a takes 8-bit operands K-major only), in
+//    128-byte boxes of 128 int8 columns, exact int32 sums.  Beside the bias
+//    ring a ring of row scales: score = bias - c * f32(acc) with c = qs *
+//    scale[row] (qs = 2 qscale for l2, qscale otherwise), each product and
+//    the difference rounded on its own (no FMA), the order of the plain
+//    version (ops/fused_topk.py pool_candidates_reference), so the two give
+//    the same keys.  Replaces the XLA scans of
+//    embeddinghub_tpu/ops/topk.py:301-313 (int8_oversample_search) and
+//    :697-710 (quantized_chunked_exact's chunks).
+//    Bound at the deep shape (10,485,760 x 96, B=1024): 2*B*cap*D = 2.06e12
+//    int8 operations take 1.04 ms at 1,979 TOPS; the plane (1.0 GB) and the
+//    x_sq, scales and valid (9 bytes a row) take 0.33 ms at 3.35 TB/s: the
+//    operations bound it.
+//  A pool's keys are selected per segment of `seg` keys (a deep arena's
+//  chunk of rows, or the whole arena): the select below runs per (segment,
+//  part) block and again over the parts' winners until one block a segment
+//  is left, whose k best keys, ascending, are the output [B][segments][k].
+//  The main path is the same select over one segment, its last pass
+//  through the epilogue.
+//
 // A kernel launches on the caller's stream and allocates nothing.  The C
 // entry returns 0, a CUDA error code, or NO_LIBCUDA / ENCODE_FAILED + the
 // CUresult when a tensor map cannot be made.
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "hopper_common.cuh"
 
@@ -74,25 +112,28 @@ constexpr int CONSUMER_WARPS = 8;            // arrivals that release a stage
 constexpr int PRODUCER_REGS = 40;            // setmaxnreg: the producer gives up
 constexpr int CONSUMER_REGS = 232;           // registers the consumers take
 constexpr int TILE_STAGES = 4;               // ring of per-tile bias
-constexpr int TILE_BYTES = GROUP * 4;        // f32 bias of a tile's rows
-constexpr int STORE_TILES = 16;              // tiles of keys per TMA store
+constexpr int TILE_BYTES = GROUP * 4;        // f32 bias (and, I8, scales) of a tile's rows
+constexpr int STORE_TILES = 16;              // keys of a query per TMA store
 constexpr int STORE_BYTES = 2 * 2 * WG_Q * STORE_TILES * 8;  // 2 warpgroups x 2 buffers
 constexpr int MAX_STAGES = 8;               // ring depth at most (more gained nothing)
 constexpr int MIN_RESIDENT_STAGES = 4;       // else the query tile streams
 constexpr int SELECT_CHUNK = 8192;           // keys one select block holds
+constexpr int POOL_BIN = 32;                 // rows a pool's key stands for
+constexpr int MAX_POOL_KP = 4096;            // a pool's k, rounded up to a power of two, at most
 
 // Shared memory of the scan, from its 1024-byte aligned base: the query
 // boxes (when resident), the ring, the staged keys, the tile ring, the
 // mbarriers.
 struct Layout {
-  int nb;           // boxes across the padded width Dp
+  int nb;           // boxes across the padded width Dp (I8: 128-column boxes of D)
   int stages;       // ring depth
   int resident;     // query tile loaded once (1) or with each box (0)
   int stage_bytes;  // one arena box, plus its query box when streamed
+  int tile_bytes;   // a tile ring stage: the bias, and for I8 the scales after it
   __host__ __device__ int ring_off() const { return resident ? nb * BOX_BYTES : 0; }
   __host__ __device__ int store_off() const { return ring_off() + stages * stage_bytes; }
   __host__ __device__ int tile_off() const { return store_off() + STORE_BYTES; }
-  __host__ __device__ int bar_off() const { return tile_off() + TILE_STAGES * TILE_BYTES; }
+  __host__ __device__ int bar_off() const { return tile_off() + TILE_STAGES * tile_bytes; }
   __host__ __device__ int bytes() const {
     return bar_off() + (2 * stages + 2 * TILE_STAGES + 1) * 8 + 1024;  // + alignment slack
   }
@@ -167,10 +208,47 @@ __device__ __forceinline__ void wgmma_128_rs(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d[64] (+)= A[64 x 32] . B[32 x 128]^T in int8 with exact int32 sums, both
+// operands from shared memory, K-major; the first step of a tile
+// (scale_d = 0) overwrites.
+__device__ __forceinline__ void wgmma_128_i8(int* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // Keeps the compiler from moving reads of the accumulators above the wait.
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(int* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // ------------------------------------------------------------- the scan
@@ -194,7 +272,7 @@ __device__ __forceinline__ void take_min(float& v, int& c, float ov, int oc) {
 
 // What a consumer thread needs across tiles for its epilogues.
 struct Epilogue {
-  const uint8_t* tiles;  // the tile ring of biases
+  const uint8_t* tiles;  // the tile ring of biases (and scales)
   uint64_t* tempty;      // its empty barriers
   uint64_t* tfull;       // its full barriers
   uint64_t* staged;      // this warpgroup's two [64][STORE_TILES] key buffers
@@ -203,37 +281,62 @@ struct Epilogue {
   int row, tq, warp, lane;
   bool active;           // the warpgroup has a query below B
   float scale;           // score = bias + scale * q.x
+  float qs0, qs1;        // I8: the multipliers of queries row and row + 8
+  int tile_bytes;        // a tile ring stage
   int ts, tph, buf;      // tile ring stage and phase; key buffer
 };
 
-// One tile's epilogue, for the tile in acc: each query's group winner into
-// the staged keys, and every STORE_TILES tiles (or at t_end) a TMA store of
+// The score of one product: bias + scale * acc (bf16), or I8 bias - (qs *
+// scale[row]) * f32(acc), each operation rounded on its own, as the plain
+// version computes it.
+__device__ __forceinline__ float score_of(const Epilogue& e, float acc, float bias,
+                                          float, float) {
+  return fmaf(e.scale, acc, bias);
+}
+__device__ __forceinline__ float score_of(const Epilogue&, int acc, float bias,
+                                          float qs, float sc) {
+  return __fsub_rn(bias, __fmul_rn(__fmul_rn(qs, sc), __int2float_rn(acc)));
+}
+
+// One tile's epilogue, for the tile in acc: each query's bin winners into
+// the staged keys, and every STORE_TILES keys (or at t_end) a TMA store of
 // them.  write: t is a real tile (not the pad of an odd count).
 //
 // bias: x_sq (l2) or 0 for a live row, +inf for a dead one or one past
-// cap, so a score is one FMA and a dead row never wins.  Columns in
+// cap, so a score is one FMA (I8: a product and a difference) and a dead
+// row never wins.  Columns in
 // ascending order within each of four chains (two rows, even and odd j)
 // that the compiler can interleave; a chain keeps its minimum with fminf
 // and its column (a constant of the unrolled loop, 2t added at the end)
 // where the score is strictly below the minimum so far; the merges break
-// ties by the lower column: the first minimum wins.  A group with no live
-// row keeps (+inf, its first row), a key that sorts last and leaves its
-// slot empty.
-__device__ __forceinline__ void tile_epilogue(Epilogue& e, const float* acc, int t,
+// ties by the lower column: the first minimum wins.  BIN = 128: two quad
+// shuffles give the group winner, one key per query and tile; BIN = 32:
+// each thread's own winner is its bin's, key 4 * tile + tq.  A bin with no
+// live row keeps (+inf, its first row), a key that sorts last and leaves
+// its slot empty.
+template <int BIN, typename Acc>
+__device__ __forceinline__ void tile_epilogue(Epilogue& e, const Acc* acc, int t,
                                               int t_end, bool write) {
+  constexpr int KPT = GROUP / BIN;           // keys of a query per tile
+  constexpr int TPS = STORE_TILES / KPT;     // tiles per store
   mbar_wait(e.tfull + e.ts, e.tph);
   if (e.active && write) {
-    const float* bias = reinterpret_cast<const float*>(e.tiles + e.ts * TILE_BYTES);
+    const float* bias = reinterpret_cast<const float*>(e.tiles + e.ts * e.tile_bytes);
+    const float* scl = bias + GROUP;  // I8 only
     float v[4] = {INF, INF, INF, INF};
     int c[4] = {0, 0, 0, 0};
 #pragma unroll
     for (int j = 0; j < GROUP / 8; ++j) {
       const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * e.tq);
+      float2 ss = make_float2(0.f, 0.f);
+      if constexpr (std::is_same<Acc, int>::value)
+        ss = *reinterpret_cast<const float2*>(scl + 8 * j + 2 * e.tq);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float bh = h ? bb.y : bb.x;
-        const float sa = fmaf(e.scale, acc[4 * j + h], bh);
-        const float sb = fmaf(e.scale, acc[4 * j + 2 + h], bh);
+        const float sh = h ? ss.y : ss.x;
+        const float sa = score_of(e, acc[4 * j + h], bh, e.qs0, sh);
+        const float sb = score_of(e, acc[4 * j + 2 + h], bh, e.qs1, sh);
         const int p = j & 1;
         c[p] = sa < v[p] ? 8 * j + h : c[p];
         v[p] = fminf(v[p], sa);
@@ -245,29 +348,35 @@ __device__ __forceinline__ void tile_epilogue(Epilogue& e, const float* acc, int
     take_min(v[2], c[2], v[3], c[3]);
     c[0] += 2 * e.tq;
     c[2] += 2 * e.tq;
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float ova = __shfl_xor_sync(FULL, v[0], off);
-      const int oca = __shfl_xor_sync(FULL, c[0], off);
-      const float ovb = __shfl_xor_sync(FULL, v[2], off);
-      const int ocb = __shfl_xor_sync(FULL, c[2], off);
-      take_min(v[0], c[0], ova, oca);
-      take_min(v[2], c[2], ovb, ocb);
-    }
     uint64_t* out = e.staged + e.buf * WG_Q * STORE_TILES;
-    const int slot = t % STORE_TILES;
-    if (e.tq == 0) {
-      out[e.row * STORE_TILES + slot] = pack(v[0], t * GROUP + c[0]);
-      out[(e.row + 8) * STORE_TILES + slot] = pack(v[2], t * GROUP + c[2]);
+    const int slot = t % TPS;
+    if constexpr (BIN == GROUP) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ova = __shfl_xor_sync(FULL, v[0], off);
+        const int oca = __shfl_xor_sync(FULL, c[0], off);
+        const float ovb = __shfl_xor_sync(FULL, v[2], off);
+        const int ocb = __shfl_xor_sync(FULL, c[2], off);
+        take_min(v[0], c[0], ova, oca);
+        take_min(v[2], c[2], ovb, ocb);
+      }
+      if (e.tq == 0) {
+        out[e.row * STORE_TILES + slot] = pack(v[0], t * GROUP + c[0]);
+        out[(e.row + 8) * STORE_TILES + slot] = pack(v[2], t * GROUP + c[2]);
+      }
+    } else {
+      static_assert(BIN * 4 == GROUP, "a pool's bin is a thread's 32 columns");
+      out[e.row * STORE_TILES + slot * KPT + e.tq] = pack(v[0], t * GROUP + c[0]);
+      out[(e.row + 8) * STORE_TILES + slot * KPT + e.tq] = pack(v[2], t * GROUP + c[2]);
     }
-    // Every STORE_TILES tiles (slices start on a multiple of it), one TMA
-    // store writes the warpgroup's [64 x STORE_TILES] keys into the [B, G]
-    // buffer; it clips rows past B and tiles past G.
-    if (slot == STORE_TILES - 1 || t + 1 == t_end) {
+    // Every STORE_TILES keys (slices start on a multiple of TPS tiles), one
+    // TMA store writes the warpgroup's [64 x STORE_TILES] keys into the
+    // [B, G * KPT] buffer; it clips rows past B and keys past the last tile.
+    if (slot == TPS - 1 || t + 1 == t_end) {
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       named_sync(FLUSH + e.wg, 128);
       if (e.warp == 0 && e.lane == 0) {
-        tma_store_2d(e.kmap, out, t - slot, e.q_wg);
+        tma_store_2d(e.kmap, out, (t - slot) * KPT, e.q_wg);
         asm volatile("cp.async.bulk.commit_group;" ::: "memory");
         // the store before this one has read the other buffer
         asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
@@ -323,14 +432,18 @@ __device__ __forceinline__ int issue_rs(float* acc, const uint32_t (&afrag)[RS][
 // It issues one tile past its slice's end (the last tile again, when the
 // count is odd, and once more at the end) to keep every product issue
 // unconditional.  RS = 0: both operands from shared memory, any width, one
-// accumulator, the two warpgroups side by side.
-template <int RS>
+// accumulator, the two warpgroups side by side.  I8 (RS = 0 only): int8
+// operands, int32 accumulators, and the scale ring (smap) beside the bias
+// ring; qs [B] the queries' multipliers.  BIN: see tile_epilogue.
+template <int RS, int BIN, bool I8>
 __global__ void __launch_bounds__(THREADS, 1)
 k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
                const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap bmap,
-               const __grid_constant__ CUtensorMap kmap, int B, int n_tiles,
-               int tiles_per_split, int l2, Layout L) {
+               const __grid_constant__ CUtensorMap smap,
+               const __grid_constant__ CUtensorMap kmap, const float* __restrict__ qs,
+               int B, int n_tiles, int tiles_per_split, int l2, Layout L) {
+  static_assert(!I8 || RS == 0, "int8 operands come from shared memory");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -367,18 +480,21 @@ k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
   if (wg == 2) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (tid != PRODUCER) return;
+    constexpr int BOX_COLS = I8 ? 2 * BOX : BOX;  // a box is 128 bytes wide
     if (L.resident) {
       mbar_expect_tx(qbar, L.nb * BOX_BYTES);
       for (int j = 0; j < L.nb; ++j)
-        tma_2d(smem + j * BOX_BYTES, &qmap, j * BOX, q0, qbar);
+        tma_2d(smem + j * BOX_BYTES, &qmap, j * BOX_COLS, q0, qbar);
     }
     int s = 0, ph = 0, ts = 0, tph = 0;
     for (int i = 0; i < n_mma; ++i) {
       const int t = min(t_begin + i, t_end - 1);
       if (i < n_epi) {
         mbar_wait(tempty + ts, tph ^ 1);
-        mbar_expect_tx(tfull + ts, TILE_BYTES);
-        tma_1d(smem + L.tile_off() + ts * TILE_BYTES, &bmap, t * GROUP, tfull + ts);
+        uint8_t* tile = smem + L.tile_off() + ts * L.tile_bytes;
+        mbar_expect_tx(tfull + ts, L.tile_bytes);
+        tma_1d(tile, &bmap, t * GROUP, tfull + ts);
+        if constexpr (I8) tma_1d(tile + TILE_BYTES, &smap, t * GROUP, tfull + ts);
         if (++ts == TILE_STAGES) {
           ts = 0;
           tph ^= 1;
@@ -388,8 +504,8 @@ k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_wait(empty + s, ph ^ 1);
         uint8_t* st = smem + L.ring_off() + s * L.stage_bytes;
         mbar_expect_tx(full + s, L.stage_bytes);
-        tma_2d(st, &xmap, j * BOX, t * GROUP, full + s);
-        if (!L.resident) tma_2d(st + BOX_BYTES, &qmap, j * BOX, q0, full + s);
+        tma_2d(st, &xmap, j * BOX_COLS, t * GROUP, full + s);
+        if (!L.resident) tma_2d(st + BOX_BYTES, &qmap, j * BOX_COLS, q0, full + s);
         if (++s == L.stages) {
           s = 0;
           ph ^= 1;
@@ -418,6 +534,13 @@ k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
   e.row = warp * 16 + (lane >> 2);  // this thread's queries: row, row + 8
   e.active = e.q_wg < B;
   e.scale = l2 ? -2.f : -1.f;
+  e.qs0 = e.qs1 = 0.f;
+  if constexpr (I8) {
+    const int qa = e.q_wg + e.row;
+    if (qa < B) e.qs0 = qs[qa];
+    if (qa + 8 < B) e.qs1 = qs[qa + 8];
+  }
+  e.tile_bytes = L.tile_bytes;
   e.ts = e.tph = e.buf = 0;
   const uint32_t ring = smem_u32(smem + L.ring_off());
   if (L.resident) mbar_wait(qbar, 0);
@@ -454,20 +577,21 @@ k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
       wgmma_wait<1>();
       fence_acc(acc0);
       release(s0);
-      tile_epilogue(e, acc0, t_begin + i, t_end, true);
+      tile_epilogue<BIN>(e, acc0, t_begin + i, t_end, true);
       s0 = issue_rs<RS>(acc0, afrag, full, ring, L.stage_bytes, L.stages, s, ph);
       wgmma_wait<1>();
       fence_acc(acc1);
       release(s1);
-      tile_epilogue(e, acc1, t_begin + i + 1, t_end, t_begin + i + 1 < t_end);
+      tile_epilogue<BIN>(e, acc1, t_begin + i + 1, t_end, t_begin + i + 1 < t_end);
     }
     wgmma_wait<0>();
     fence_acc(acc0);
     release(s0);
   } else {
-    float acc[64];
+    using Acc = typename std::conditional<I8, int, float>::type;
+    Acc acc[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
     const uint32_t wg_rows = wg * WG_Q * 128;  // the warpgroup's 64 rows of a query box
     for (int t = t_begin; t < t_end; ++t) {
       // The products are issued on every path alike (a warpgroup past B
@@ -481,9 +605,14 @@ k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
             (L.resident ? smem_u32(smem) + j * BOX_BYTES : b_addr + BOX_BYTES) + wg_rows;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BOX / 16; ++kk)
-          wgmma_128(acc, sw128_desc(a_addr + 32 * kk), sw128_desc(b_addr + 32 * kk),
-                    (j | kk) != 0);
+        for (int kk = 0; kk < BOX / 16; ++kk) {  // four steps of 32 bytes of K
+          if constexpr (I8)
+            wgmma_128_i8(acc, sw128_desc(a_addr + 32 * kk), sw128_desc(b_addr + 32 * kk),
+                         (j | kk) != 0);
+          else
+            wgmma_128(acc, sw128_desc(a_addr + 32 * kk), sw128_desc(b_addr + 32 * kk),
+                      (j | kk) != 0);
+        }
         wgmma_commit();
         // The previous box's products are done: free its stage (a tile may
         // have more boxes than the ring has stages).
@@ -498,7 +627,7 @@ k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
       wgmma_wait<0>();
       fence_acc(acc);
       if (lane == 0) mbar_arrive(empty + prev);
-      tile_epilogue(e, acc, t, t_end, true);
+      tile_epilogue<BIN>(e, acc, t, t_end, true);
     }
   }
   if (e.active && warp == 0 && lane == 0)
@@ -526,7 +655,10 @@ k2_queries_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ qb, i
 // ------------------------------------------------------------ selection
 
 // One block per (chunk, query): the k smallest of the chunk's keys (a
-// query's n keys start every stride keys).  Radix
+// query's n keys start every stride keys).  The keys fall in segments of
+// seg keys, each cut in cps chunks of at most `chunk` keys: block x is
+// chunk x % cps of segment x / cps, and a chunk never crosses a segment's
+// end (the main path: one segment, seg = n).  Radix
 // select finds the k-th key 8 bits a pass from the top, counting in a
 // 256-bin histogram the keys that match the digits chosen so far, and
 // stops as soon as the chosen bin holds exactly the keys still needed.
@@ -538,9 +670,9 @@ k2_queries_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ qb, i
 template <bool EMIT>
 __global__ void __launch_bounds__(MERGE_THREADS)
 k2_select_kernel(const unsigned long long* __restrict__ in, int n, int stride,
-                 int chunk, int k, int kp, unsigned long long* __restrict__ out,
-                 const float* __restrict__ q, float* __restrict__ od,
-                 int* __restrict__ oi, int D, int l2) {
+                 int chunk, int seg, int cps, int k, int kp,
+                 unsigned long long* __restrict__ out, const float* __restrict__ q,
+                 float* __restrict__ od, int* __restrict__ oi, int D, int l2) {
   extern __shared__ unsigned long long sk[];  // [chunk] keys, then [kp] chosen
   unsigned long long* sel = sk + chunk;
   __shared__ unsigned hist[256];
@@ -551,8 +683,16 @@ k2_select_kernel(const unsigned long long* __restrict__ in, int n, int stride,
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int lo = c * chunk;
-  const int m = min(chunk, n - lo);
+  const int seg_lo = c / cps * seg;
+  const int part = c % cps * chunk;
+  const int lo = seg_lo + part;
+  const int m = min(chunk, min(seg, n - seg_lo) - part);
+  if (m <= 0) {  // a ragged last segment's empty chunk: all padding
+    if constexpr (!EMIT)
+      for (int j = tid; j < k; j += MERGE_THREADS)
+        out[((size_t)b * gridDim.x + c) * k + j] = ~0ull;
+    return;
+  }
   const unsigned long long* src = in + (size_t)b * stride + lo;
   for (int e = tid; e < m; e += MERGE_THREADS) sk[e] = src[e];
   const int take = min(k, m);
@@ -661,10 +801,13 @@ int encode_keys(EncodeTiled enc, CUtensorMap* m, void* base, int cols,
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
 }
 
-Layout scan_layout(int Dp) {
+// The scan's shared memory for rows of Dp bf16 columns, or (i8) of Dp int8
+// columns in boxes of 128.
+Layout scan_layout(int Dp, int i8) {
   Layout L{};
-  L.nb = Dp / BOX;
-  const int fixed = STORE_BYTES + TILE_STAGES * TILE_BYTES +
+  L.nb = i8 ? (Dp + 2 * BOX - 1) / (2 * BOX) : Dp / BOX;
+  L.tile_bytes = i8 ? 2 * TILE_BYTES : TILE_BYTES;
+  const int fixed = STORE_BYTES + TILE_STAGES * L.tile_bytes +
                     (2 * MAX_STAGES + 2 * TILE_STAGES + 1) * 8 + 1024;
   int room = SMEM_LIMIT - fixed - L.nb * BOX_BYTES;
   L.resident = room >= MIN_RESIDENT_STAGES * BOX_BYTES;
@@ -681,9 +824,15 @@ cudaError_t opt_in_shared_memory() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 32 && (done >> dev) & 1u)) return e;
-  const int select_most = (SELECT_CHUNK + 256) * (int)sizeof(unsigned long long);
-  const void* scans[] = {(const void*)k2_scan_kernel<0>, (const void*)k2_scan_kernel<1>,
-                         (const void*)k2_scan_kernel<2>, (const void*)k2_scan_kernel<3>};
+  const int select_most = (SELECT_CHUNK + MAX_POOL_KP) * (int)sizeof(unsigned long long);
+  const void* scans[] = {
+      (const void*)k2_scan_kernel<0, GROUP, false>, (const void*)k2_scan_kernel<1, GROUP, false>,
+      (const void*)k2_scan_kernel<2, GROUP, false>, (const void*)k2_scan_kernel<3, GROUP, false>,
+      (const void*)k2_scan_kernel<0, POOL_BIN, false>,
+      (const void*)k2_scan_kernel<1, POOL_BIN, false>,
+      (const void*)k2_scan_kernel<2, POOL_BIN, false>,
+      (const void*)k2_scan_kernel<3, POOL_BIN, false>,
+      (const void*)k2_scan_kernel<0, POOL_BIN, true>};
   for (const void* f : scans)
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
@@ -697,76 +846,139 @@ cudaError_t opt_in_shared_memory() {
   return e;
 }
 
+// sc [n]: the row scales of a pool's I8 scan, 0 past cap.
+__global__ void row_scale_kernel(const float* __restrict__ scales, float* __restrict__ sc,
+                                 int cap, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) sc[i] = i < cap ? scales[i] : 0.f;
+}
+
+// Launches the scan over n_tiles tiles for B queries: slices of the arena
+// start on a multiple of the tiles one TMA store of keys covers, so a store
+// never crosses into another block's tiles.  bf16 operands take A from
+// registers when the resident query tile is at most 3 boxes wide and the
+// ring holds two tiles (at 4 boxes it holds 7 stages, not 8).
+template <int BIN, bool I8>
+cudaError_t launch_scan(const CUtensorMap& xmap, const CUtensorMap& qmap,
+                        const CUtensorMap& bmap, const CUtensorMap& smap,
+                        const CUtensorMap& kmap, const float* qs, int B, int n_tiles,
+                        int splits, int l2, const Layout& L, cudaStream_t s) {
+  constexpr int TPS = STORE_TILES * BIN / GROUP;
+  int per = (n_tiles + splits - 1) / splits;
+  per = (per + TPS - 1) / TPS * TPS;
+  const dim3 grid((B + BLOCK_Q - 1) / BLOCK_Q, (n_tiles + per - 1) / per);
+  const int rs = L.resident && L.nb <= 3 && L.stages >= 2 * L.nb ? L.nb : 0;
+  auto scan = I8 ? k2_scan_kernel<0, BIN, I8>
+            : rs == 1 ? k2_scan_kernel<1, BIN, false> : rs == 2 ? k2_scan_kernel<2, BIN, false>
+            : rs == 3 ? k2_scan_kernel<3, BIN, false> : k2_scan_kernel<0, BIN, false>;
+  scan<<<grid, THREADS, L.bytes(), s>>>(xmap, qmap, bmap, smap, kmap, qs, B, n_tiles, per,
+                                        l2, L);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// K2.  q: [B, D] f32, the queries as given (cosine ones are normalized
-// here); valid [cap] u8; x_sq [cap] f32; xb: the [cap, Dp] bf16 mirror (Dp
-// a multiple of 64, 16-byte aligned).  Scratch: qb [B, Dp] bf16 and bias
-// [G * 128] f32 (G = ceil(cap / 128)), both 16-byte aligned; keys [B,
-// stride], stride >= G even; part [B, ceil(G / 8192) * k] when G > 8192,
-// else unused.  od/oi: [B, k] results.  splits: arena slices along the
-// grid's y.
-int ehtorch_k2(const float* q, const uint8_t* valid, const float* x_sq,
-               const void* xb, void* qb, float* bias, unsigned long long* keys,
-               unsigned long long* part, float* od, int* oi, int B, int cap,
-               int D, int Dp, int stride, int k, int l2, int cosine, int splits,
-               void* stream) {
+// K2: the scan, then the k best keys (score, row) of every segment of seg
+// keys, one key per bin of `bin` rows: GROUP (the main path's groups) or,
+// for a quantized search's candidate pool, POOL_BIN.
+// i8 = 0: q [B, D] f32, rounded to bf16 here into the scratch qb [B, Dp]
+// (a cosine query divided by its norm first when cosine = 1; a pool's
+// queries come normalized); plane: the [cap, Dp] bf16 mirror (Dp a
+// multiple of 64, 16-byte aligned).  i8 = 1 (bin POOL_BIN): q the [B, D]
+// int8 queries in rows of q_bytes bytes and qs [B] their multipliers (2
+// qscale for l2, qscale otherwise); plane the [cap, D] int8 hi plane in
+// rows of plane_bytes bytes (both multiples of 16, 16-byte aligned),
+// scales [cap] f32.  valid [cap] u8, x_sq [cap] f32.  Scratch: bias and
+// sc [G * 128] f32 (G = ceil(cap / 128); sc for i8 only); keys [B,
+// stride], stride >= G * 128 / bin, even; part [B, segments * parts * k]
+// when a segment holds more than SELECT_CHUNK keys (parts = ceil(seg /
+// SELECT_CHUNK)), else unused.  emit = 1 (the main path: bf16, one
+// segment): the epilogue writes od/oi [B, k]; emit = 0: out [B, segments,
+// k], each segment's k smallest keys, ascending, all ones past its keys.
+// k <= MAX_POOL_KP.  splits: arena slices along the scan grid's y.
+int ehtorch_k2(const void* q, const float* qs, const uint8_t* valid, const float* x_sq,
+               const float* scales, const void* plane, void* qb, float* bias, float* sc,
+               unsigned long long* keys, unsigned long long* part, unsigned long long* out,
+               float* od, int* oi, int B, int cap, int D, int Dp, int q_bytes,
+               int plane_bytes, int stride, int k, int seg, int bin, int l2, int cosine,
+               int i8, int emit, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  int kp = 1;
+  while (kp < k) kp <<= 1;
+  const int n_tiles = (cap + GROUP - 1) / GROUP;
+  const int nk = n_tiles * (GROUP / max(bin, 1));
+  if (kp > MAX_POOL_KP || seg < 1 || (bin != GROUP && bin != POOL_BIN) ||
+      (i8 && bin != POOL_BIN) || (emit && (i8 || seg < nk)))
+    return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return NO_LIBCUDA;
-  const int n_tiles = (cap + GROUP - 1) / GROUP;
-  CUtensorMap xmap, qmap, bmap, kmap;
-  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  int err = encode_rows(enc, &xmap, bf16, xb, Dp, cap, (size_t)Dp * 2, BOX, GROUP);
-  if (!err) err = encode_rows(enc, &qmap, bf16, qb, Dp, B, (size_t)Dp * 2, BOX, GROUP);
+  CUtensorMap xmap, qmap, bmap, smap, kmap;
+  int err;
+  if (i8) {
+    const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    err = encode_rows(enc, &xmap, u8, plane, D, cap, (size_t)plane_bytes, 2 * BOX, GROUP);
+    if (!err) err = encode_rows(enc, &qmap, u8, q, D, B, (size_t)q_bytes, 2 * BOX, GROUP);
+    if (!err) err = encode_bias(enc, &smap, sc, n_tiles * GROUP, GROUP);
+  } else {
+    const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    err = encode_rows(enc, &xmap, bf16, plane, Dp, cap, (size_t)Dp * 2, BOX, GROUP);
+    if (!err) err = encode_rows(enc, &qmap, bf16, qb, Dp, B, (size_t)Dp * 2, BOX, GROUP);
+  }
   if (!err) err = encode_bias(enc, &bmap, bias, n_tiles * GROUP, GROUP);
-  if (!err) err = encode_keys(enc, &kmap, keys, n_tiles, stride, B);
+  if (!err) err = encode_keys(enc, &kmap, keys, nk, stride, B);
   if (err) return err;
+  if (!i8) smap = bmap;  // unread
 
-  k2_queries_kernel<<<B, MERGE_THREADS, 0, s>>>(
-      q, static_cast<__nv_bfloat16*>(qb), D, Dp, cosine);
+  if (i8)
+    row_scale_kernel<<<(n_tiles * GROUP + 255) / 256, 256, 0, s>>>(scales, sc, cap,
+                                                                   n_tiles * GROUP);
+  else
+    k2_queries_kernel<<<B, MERGE_THREADS, 0, s>>>(
+        static_cast<const float*>(q), static_cast<__nv_bfloat16*>(qb), D, Dp, cosine);
   row_bias_kernel<<<(n_tiles * GROUP + 255) / 256, 256, 0, s>>>(
       valid, x_sq, bias, cap, n_tiles * GROUP, l2);
   cudaError_t e = opt_in_shared_memory();
   if (e != cudaSuccess) return (int)e;
-  const Layout L = scan_layout(Dp);
-  // Slices start on a multiple of STORE_TILES: a TMA store of keys never
-  // crosses into another block's tiles.
-  int per = (n_tiles + splits - 1) / splits;
-  per = (per + STORE_TILES - 1) / STORE_TILES * STORE_TILES;
-  const dim3 grid((B + BLOCK_Q - 1) / BLOCK_Q, (n_tiles + per - 1) / per);
-  // A resident query tile of up to 3 boxes goes in registers (RS), when
-  // the ring holds two tiles (at 4 boxes it holds 7 stages, not 8).
-  const int rs = L.resident && L.nb <= 3 && L.stages >= 2 * L.nb ? L.nb : 0;
-  auto scan = rs == 1 ? k2_scan_kernel<1> : rs == 2 ? k2_scan_kernel<2>
-            : rs == 3 ? k2_scan_kernel<3> : k2_scan_kernel<0>;
-  scan<<<grid, THREADS, L.bytes(), s>>>(xmap, qmap, bmap, kmap, B, n_tiles, per, l2, L);
-  e = cudaGetLastError();
+  const Layout L = scan_layout(i8 ? D : Dp, i8);
+  const float* qsp = i8 ? qs : nullptr;
+  e = i8 ? launch_scan<POOL_BIN, true>(xmap, qmap, bmap, smap, kmap, qsp, B, n_tiles, splits,
+                                       l2, L, s)
+      : bin == GROUP
+          ? launch_scan<GROUP, false>(xmap, qmap, bmap, smap, kmap, qsp, B, n_tiles, splits,
+                                      l2, L, s)
+          : launch_scan<POOL_BIN, false>(xmap, qmap, bmap, smap, kmap, qsp, B, n_tiles,
+                                         splits, l2, L, s);
   if (e != cudaSuccess) return (int)e;
 
-  int kp = 1;
-  while (kp < k) kp <<= 1;
-  const int most = (int)((SELECT_CHUNK + kp) * sizeof(unsigned long long));
-  int n = n_tiles;
+  // Per segment: chunks of at most SELECT_CHUNK keys down to k keys each,
+  // until one chunk a segment is left; its k best are the output (through
+  // the epilogue when emit).
+  const int n_seg = (nk + seg - 1) / seg;
+  int n = nk, cur = seg, st = stride;
   unsigned long long* src = keys;
   unsigned long long* dst = part;
-  while (n > SELECT_CHUNK) {  // each query's chunks down to k keys each
-    const int chunks = (n + SELECT_CHUNK - 1) / SELECT_CHUNK;
-    k2_select_kernel<false><<<dim3(chunks, B), MERGE_THREADS, most, s>>>(
-        src, n, stride, SELECT_CHUNK, k, kp, dst, nullptr, nullptr, nullptr, D, l2);
+  while (true) {
+    const int cps = (cur + SELECT_CHUNK - 1) / SELECT_CHUNK;
+    const int chunk = (cur + cps - 1) / cps;
+    const size_t smem = (size_t)(chunk + kp) * sizeof(unsigned long long);
+    const dim3 grid(n_seg * cps, B);
+    unsigned long long* to = cps == 1 ? out : dst;
+    if (cps == 1 && emit)
+      k2_select_kernel<true><<<grid, MERGE_THREADS, smem, s>>>(
+          src, n, st, chunk, cur, 1, k, kp, nullptr, static_cast<const float*>(q), od, oi,
+          D, l2);
+    else
+      k2_select_kernel<false><<<grid, MERGE_THREADS, smem, s>>>(
+          src, n, st, chunk, cur, cps, k, kp, to, nullptr, nullptr, nullptr, D, l2);
     e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    n = stride = chunks * k;
-    unsigned long long* t = src;
-    src = dst;
-    dst = t;
+    if (e != cudaSuccess || cps == 1) return (int)e;
+    cur = cps * k;
+    n = st = n_seg * cur;
+    dst = src;
+    src = to;
   }
-  const size_t smem = (size_t)(n + kp) * sizeof(unsigned long long);
-  k2_select_kernel<true><<<dim3(1, B), MERGE_THREADS, smem, s>>>(
-      src, n, stride, n, k, kp, nullptr, q, od, oi, D, l2);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -22,6 +22,14 @@ Two kernels, both hand-written CUDA for sm_90a:
     products, group winners as 64-bit keys into a ``[B, cap/128]`` buffer,
     then a radix select per query.  The candidate stage of
     ``approx_oversample_search``.
+  * K2's candidate pools, :func:`pool_candidates` -- the phase 1 of the
+    quantized arenas' searches (``ops/topk.py``), the same scan keeping one
+    winner per ``POOL_BIN`` = 32 strided rows (four a 128-row tile), its
+    keys selected per segment of rows (a deep arena's chunk, or the whole
+    arena).  Over an int8 hi plane it is K2's int8 instantiation (int8
+    wgmma with int32 sums, the queries quantized per row here, a ring of
+    row scales; counted as ``fused_topk_search_v2_int8``); over a bf16
+    mirror (a deep bf16 arena) its bf16 scan.
 
 Neither writes the ``[B, cap]`` score matrix to device memory, which is
 the point: ``q @ x.T`` then ``torch.topk`` would write 16 GB at 1M rows and
@@ -82,9 +90,15 @@ _K2_SELECT_CHUNK = 8192  # keys a select block holds (k2_scan.cu SELECT_CHUNK)
 # (one query at least).
 SCORE_BUFFER_BYTES = 1 << 30
 
+# K2's candidate pools: one winner per POOL_BIN rows, at most MAX_K_POOL
+# candidates a segment (k2_scan.cu POOL_BIN, MAX_POOL_KP).
+POOL_BIN = 32
+MAX_K_POOL = 4096
+_TILE_BINS = GROUP // POOL_BIN
+
 _launch_lock = threading.Lock()
 LAUNCHES = {"fused_topk_search": 0, "fused_topk_search_v2": 0,
-            "fused_topk_search_large_k": 0}
+            "fused_topk_search_large_k": 0, "fused_topk_search_v2_int8": 0}
 # The plain large-k version scans the arena in chunks whose step holds
 # three [B, chunk] f32 temporaries (products, scores, masked scores); the
 # chunk keeps them within this many bytes, down to a least chunk of GROUP
@@ -147,6 +161,20 @@ def arena_f32(x: torch.Tensor) -> torch.Tensor:
     return out[:, :dims]
 
 
+def plane_i8(x: torch.Tensor) -> torch.Tensor:
+    """An int8 plane as K2's int8 scan reads it: ``x [n, D]`` itself when
+    its rows are a multiple of 16 bytes apart and 16-byte aligned (TMA's
+    rule), else a ``[n, D]`` view of a zero-padded ``[n, ceil16(D)]``
+    copy.  The scan reads columns past ``D`` as zeros either way."""
+    n, dims = x.shape
+    if (x.stride(1) == 1 and x.stride(0) % 16 == 0 and x.stride(0) >= dims
+            and x.data_ptr() % 16 == 0):
+        return x
+    out = torch.zeros((n, -(-dims // 16) * 16), dtype=torch.int8, device=x.device)
+    out[:, :dims] = x
+    return out[:, :dims]
+
+
 def arena_bf16(x: torch.Tensor) -> torch.Tensor:
     """The bf16 mirror K2 reads: ``x [n, D]`` rounded to bf16 (to nearest
     even), in ``[n, mirror_dims(D)]`` with the padding columns zero."""
@@ -175,7 +203,57 @@ def approx_candidates(q, xb, valid, x_sq, *, k, metric):
     if xb.device.type == "cpu":
         return fused_topk_search_v2_reference(q, xb, valid, x_sq, k=k,
                                               metric=metric)
-    return _launch_k2(q, xb, valid, x_sq, k, metric)
+    return _launch_k2(q, xb, valid, x_sq, None, k, metric)
+
+
+def quantize_queries(qf: torch.Tensor, metric: str):
+    """The int8 queries of an int8 scan, as ``ops/topk.py:297-300`` of the
+    reference: ``qscale = max|q| / 127``, ``qq = clip(round(q / max(qscale,
+    1e-30)), -127, 127)`` (round half to even), on rows already normalized
+    for cosine.  Returns ``qq`` as ``[B, ceil16(D)]`` int8, zero-padded
+    (rows 16 bytes apart, for TMA), and ``qs [B]``, the multiplier of the
+    int32 sums: ``2 qscale`` for l2 (the score's ``2 dots``), ``qscale``
+    otherwise."""
+    qf = qf.to(torch.float32)
+    b, dims = qf.shape
+    qscale = qf.abs().amax(dim=1) / 127.0 if dims else qf.new_zeros(b)
+    qq = torch.zeros((b, -(-dims // 16) * 16), dtype=torch.int8, device=qf.device)
+    qq[:, :dims] = torch.clamp(torch.round(qf / torch.clamp(qscale, min=1e-30)[:, None]),
+                               -127, 127).to(torch.int8)
+    return qq, qscale * 2.0 if metric == "l2" else qscale
+
+
+def pool_candidates(qf, plane, valid, x_sq, scales=None, *, k, metric, seg=None):
+    """Phase 1 of the quantized searches (K2's candidate pool): each
+    segment's ``k`` best bin winners, one winner per ``POOL_BIN`` rows.
+
+    ``qf [B, D]`` f32, already normalized for cosine.  ``plane``: the
+    ``[cap, D]`` int8 hi plane of an int8 arena (with ``scales [cap]``; the
+    queries are quantized by :func:`quantize_queries`, the score is ``bias -
+    (qs * scale) * f32(qq . hi)``), or the bf16 mirror ``[cap, Dp]`` of a
+    bf16 arena (:func:`arena_bf16`; bf16-rounded queries, ``bias - 2 q.x``
+    or ``-q.x``).  The bias is ``x_sq`` (l2) or 0 for a live row, +inf for a
+    dead one.  ``seg``: the rows of a segment, a multiple of 128 (``None``:
+    the whole arena is one).  Returns ``(scores, ids)``, each ``[B,
+    segments, k]``, ascending by (score, row): the scores in that minimized
+    convention, empty slots +inf and -1."""
+    cap = plane.shape[0]
+    seg_keys = _seg_keys(cap, seg)
+    _check_k(k, MAX_K_POOL)
+    if plane.device.type == "cpu":
+        return pool_candidates_reference(qf, plane, valid, x_sq, scales, k=k,
+                                         metric=metric, seg=seg)
+    return _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys)
+
+
+def _seg_keys(cap: int, seg) -> int:
+    """The bin keys of a segment of ``seg`` rows (all the arena's when
+    ``None``)."""
+    if seg is None:
+        return -(-cap // GROUP) * _TILE_BINS
+    if seg % GROUP or seg <= 0:
+        raise ValueError(f"segment of {seg} rows is not a multiple of {GROUP}")
+    return seg // POOL_BIN
 
 
 def exact_topk_large_k(q, x, valid, x_sq, *, k, metric, exact=True):
@@ -303,45 +381,108 @@ def _k2_splits(b, cap, dev):
     return max(1, min(-(-cap // GROUP), -(-_K2_WAVES * _sms(dev) // q_tiles)))
 
 
-def _launch_k2(q, xb, valid, x_sq, k, metric):
-    name = "fused_topk_search_v2"
-    q = _checked(name, q, xb, valid, x_sq, metric, mirror=True)
-    dev = xb.device
-    b, dims = q.shape
-    cap, dp = xb.shape
-    od = torch.empty((b, k), dtype=torch.float32, device=dev)
-    oi = torch.empty((b, k), dtype=torch.int32, device=dev)
+def _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys=None):
+    """K2 on the card.  ``seg_keys=None``: the main path's candidates over
+    the bf16 mirror ``plane`` (one winner per GROUP rows, the queries as
+    given, the k best through the epilogue) -> ``(dist [B, k], ids [B,
+    k])``.  Else a pool (:func:`pool_candidates`): one winner per POOL_BIN
+    rows, each segment of ``seg_keys`` keys' k best -> ``(scores, ids)``,
+    each ``[B, segments, k]``."""
+    pool = seg_keys is not None
+    i8 = plane.dtype == torch.int8
+    name = "fused_topk_search_v2_int8" if i8 else "fused_topk_search_v2"
+    dev = plane.device
+    cap = plane.shape[0]
+    if not pool:
+        qf = _checked(name, qf, plane, valid, x_sq, metric, mirror=True)
+    else:
+        if metric not in D.METRICS:
+            raise ValueError(f"unknown metric {metric!r}")
+        if i8:
+            plane = plane_i8(plane)
+            want = [(scales, "scales", torch.float32)]
+            if plane.shape[1] != qf.shape[1]:
+                raise ValueError(f"{name}: plane of {plane.shape[1]} columns for "
+                                 f"{qf.shape[1]}")
+        else:
+            if (plane.dtype != torch.bfloat16 or plane.shape[1] != mirror_dims(qf.shape[1])
+                    or not plane.is_contiguous()):
+                plane = arena_bf16(plane[:, :qf.shape[1]])
+            want = []
+        for t, what, dtype in [(valid, "valid", torch.bool),
+                               (x_sq, "x_sq", torch.float32), *want]:
+            if (t is None or t.device != dev or t.dtype != dtype
+                    or tuple(t.shape) != (cap,) or not t.is_contiguous()):
+                raise ValueError(f"{name}: {what} must be a contiguous {dtype} ({cap},) "
+                                 f"on {dev}")
+        if qf.device != dev:
+            raise ValueError(f"{name}: queries on {qf.device}, plane on {dev}")
+    b, dims = qf.shape
+    n_tiles = -(-cap // GROUP)
+    nk = n_tiles * (_TILE_BINS if pool else 1)
+    seg = seg_keys if pool else nk
+    n_seg = -(-nk // seg)
+    if pool:
+        out, od, oi = torch.empty((b, n_seg, k), dtype=torch.int64, device=dev), None, None
+    else:
+        out = None
+        od = torch.empty((b, k), dtype=torch.float32, device=dev)
+        oi = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
-        return od, oi
-    n_groups = -(-cap // GROUP)
-    # Scratch: the queries in bf16, each row's bias (k2_scan.cu makes both),
-    # and the [queries, groups] keys of as many queries at a time as
-    # SCORE_BUFFER_BYTES holds, in rows of an even count (a multiple of 16
-    # bytes, TMA's rule for a row stride).
-    qb = torch.empty((b, dp), dtype=torch.bfloat16, device=dev)
-    bias = torch.empty((n_groups * GROUP,), dtype=torch.float32, device=dev)
-    stride = n_groups + n_groups % 2
-    group = max(1, min(b, SCORE_BUFFER_BYTES // (8 * stride)))
+        return _decode_keys(out) if pool else (od, oi)
+    # Scratch: the queries (int8 with their multipliers, or bf16, which the
+    # kernel rounds), each row's bias (and int8 scale), and the [queries,
+    # keys] buffer of as many queries at a time as SCORE_BUFFER_BYTES holds
+    # (and a select grid's y takes), rows of an even count (16-byte rows);
+    # the first select pass's winners when a segment takes several chunks.
+    if i8:
+        q, qs = quantize_queries(qf, metric)
+        qb = None
+    else:
+        q, qs = qf.to(torch.float32).contiguous(), None
+        qb = torch.empty((b, plane.shape[1]), dtype=torch.bfloat16, device=dev)
+    bias = torch.empty((n_tiles * GROUP,), dtype=torch.float32, device=dev)
+    sc = torch.empty_like(bias) if i8 else None
+    stride = nk + nk % 2
+    group = max(1, min(b, 65535, SCORE_BUFFER_BYTES // (8 * stride)))
     keys = torch.empty((group, stride), dtype=torch.int64, device=dev)
-    part = (torch.empty((group, -(-n_groups // _K2_SELECT_CHUNK) * k),
-                        dtype=torch.int64, device=dev)
-            if n_groups > _K2_SELECT_CHUNK else None)
+    parts = -(-seg // _K2_SELECT_CHUNK)
+    part = (torch.empty((group, n_seg * parts * k), dtype=torch.int64, device=dev)
+            if parts > 1 else None)
+
+    def ptr(t, row=0):
+        return None if t is None else t[row:].data_ptr() if t.dim() else t.data_ptr()
+
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         for g0 in range(0, b, group):
             g = min(group, b - g0)
             err = lib.ehtorch_k2(
-                q[g0:].data_ptr(), valid.data_ptr(), x_sq.data_ptr(), xb.data_ptr(),
-                qb[g0:].data_ptr(), bias.data_ptr(), keys.data_ptr(),
-                None if part is None else part.data_ptr(),
-                od[g0:].data_ptr(), oi[g0:].data_ptr(), g, cap, dims, dp, stride, k,
-                int(metric == "l2"), int(metric == "cosine"), _k2_splits(g, cap, dev),
-                stream)
+                ptr(q, g0), ptr(qs, g0), valid.data_ptr(), x_sq.data_ptr(), ptr(scales),
+                plane.data_ptr(), ptr(qb), bias.data_ptr(), ptr(sc), keys.data_ptr(),
+                ptr(part), ptr(out, g0), ptr(od, g0), ptr(oi, g0), g, cap, dims,
+                plane.shape[1], q.stride(0) if i8 else 0, plane.stride(0) if i8 else 0,
+                stride, k, seg, POOL_BIN if pool else GROUP, int(metric == "l2"),
+                int(metric == "cosine" and not pool), int(i8), int(not pool),
+                _k2_splits(g, cap, dev), stream)
             if err != 0:
                 raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     _count(name)
-    return od, oi
+    return _decode_keys(out) if pool else (od, oi)
+
+
+def _decode_keys(keys: torch.Tensor):
+    """K2's 64-bit keys (k2_scan.cu ``pack``, held in int64) -> (scores
+    f32, ids int32); padding (all ones) and +inf keys give +inf and -1."""
+    u = (keys >> 32) & 0xFFFFFFFF
+    bits = torch.where(u >= (1 << 31), u - (1 << 31), (~u) & 0xFFFFFFFF)
+    scores = torch.where(bits >= (1 << 31), bits - (1 << 32), bits).to(torch.int32)
+    scores = scores.view(torch.float32)
+    ids = keys & 0xFFFFFFFF
+    ids = torch.where(ids >= (1 << 31), ids - (1 << 32), ids).to(torch.int32)
+    fin = torch.isfinite(scores)
+    return torch.where(fin, scores, INF), torch.where(fin, ids, -1)
 
 
 _RADIX_BLOCKS_PER_SM = 16  # 128-thread blocks of the radix passes
@@ -462,3 +603,70 @@ def fused_topk_search_v2_reference(q, xb, valid, x_sq, *, k=16, metric="l2",
         cs, pos = torch.topk(gm, min(k, gm.shape[1]), dim=1, largest=False)
         best_s, best_i = merge_topk(best_s, best_i, cs, torch.gather(gid, 1, pos), k)
     return _epilogue(best_s, best_i, q, metric)
+
+
+def pool_candidates_reference(qf, plane, valid, x_sq, scales=None, *, k, metric,
+                              seg=None, chunk=65536):
+    """Plain :func:`pool_candidates`: the scores in the kernel's order of
+    operations (int8: ``bias - (qs * scale) * f32(qq . hi)`` with exact
+    integer sums; bf16: ``x_sq - 2 q.x`` or ``-q.x`` on bf16-rounded
+    operands), the (min, first row) of each bin of 32 rows {8j + 2t + h: j
+    < 16, h < 2} of a 128-row tile (t < 4), then each segment's ``k``
+    smallest (score, row) keys.  ``chunk``: arena rows scored at a time, a
+    multiple of 128."""
+    i8 = plane.dtype == torch.int8
+    b, dims = qf.shape
+    cap = plane.shape[0]
+    seg_keys = _seg_keys(cap, seg)
+    dev = qf.device
+    if i8:
+        q, qs = quantize_queries(qf, metric)
+        # integer sums exact in f32 up to 2**24 (rows of up to 1040 columns)
+        exact_t = torch.float32 if dims * 127 * 127 < (1 << 24) else torch.float64
+        q = q[:, :dims].to(exact_t)
+    else:
+        q = D.round_bf16(qf.to(torch.float32))
+    wv, wr = [], []
+    for s in range(0, cap, chunk):
+        e = min(cap, s + chunk)
+        rows = plane[s:e, :dims]
+        live = valid[s:e]
+        bias = torch.where(live, x_sq[s:e] if metric == "l2" else torch.zeros_like(
+            x_sq[s:e]), INF)
+        if i8:
+            acc = (q @ rows.to(q.dtype).T).to(torch.float32)
+            c = qs[:, None] * scales[None, s:e]
+            sc = bias[None, :] - c * acc
+        else:
+            dots = q @ D.round_bf16(rows.to(torch.float32)).T
+            sc = bias[None, :] - 2.0 * dots if metric == "l2" else bias[None, :] - dots
+        ragged = -sc.shape[1] % GROUP
+        if ragged:
+            sc = torch.nn.functional.pad(sc, (0, ragged), value=INF)
+        # [B, tiles, j, t, h] -> [B, tiles, t, (j, h)]: a bin's rows in order
+        bins = sc.view(b, -1, GROUP // 8, _TILE_BINS, 2).transpose(2, 3)
+        v, a = bins.reshape(b, -1, POOL_BIN).min(dim=2)  # first row among ties
+        tile = torch.arange(v.shape[1], device=dev) // _TILE_BINS
+        t = torch.arange(v.shape[1], device=dev) % _TILE_BINS
+        wv.append(v)
+        wr.append(s + tile * GROUP + (a // 2) * 8 + t * 2 + a % 2)
+    v, r = torch.cat(wv, dim=1), torch.cat(wr, dim=1)
+    n_seg = -(-v.shape[1] // seg_keys)
+    pad = n_seg * seg_keys - v.shape[1]
+    bits = v.contiguous().view(torch.int32).to(torch.int64)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # signed order of floats
+    key = order * (1 << 32) + r
+    if pad:  # (pad's value goes through a float: int64's largest would wrap)
+        key = torch.cat([key, key.new_full((b, pad), torch.iinfo(torch.int64).max)], dim=1)
+        v = torch.nn.functional.pad(v, (0, pad), value=INF)
+        r = torch.nn.functional.pad(r, (0, pad), value=-1)
+    kk = min(k, seg_keys)
+    pos = torch.topk(key.view(b, n_seg, seg_keys), kk, dim=2, largest=False).indices
+    sv = torch.gather(v.view(b, n_seg, seg_keys), 2, pos)
+    si = torch.gather(r.view(b, n_seg, seg_keys), 2, pos)
+    fin = torch.isfinite(sv)
+    sv, si = torch.where(fin, sv, INF), torch.where(fin, si, -1).to(torch.int32)
+    if kk < k:
+        sv = torch.nn.functional.pad(sv, (0, k - kk), value=INF)
+        si = torch.nn.functional.pad(si, (0, k - kk), value=-1)
+    return sv, si

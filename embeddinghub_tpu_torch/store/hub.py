@@ -14,11 +14,13 @@ default raises).  On CUDA it turns TF32 off for the process
   * ``save`` snapshots every space, which truncates their WALs.
 
 The on-disk format is the reference's, so a data directory written by
-either package opens in the other.  Two engines are ported: ``flat`` (the
-float32 arena, the default) and ``hnsw`` (``index/hnsw.py``, built with
-the ``hnsw_*`` knobs of ``utils/config.py``, as the reference's
-``_make_index``).  Every other engine of the reference raises
-``NotImplementedError`` naming its ROADMAP item.  The engine picks the index
+either package opens in the other.  The engines: ``flat`` (the float32
+arena, the default), ``flat-bf16``, ``flat-int8`` and ``flat-int8x2`` (a
+``FlatIndex`` of that ``storage_dtype``, with the quantization guard on)
+and ``hnsw`` (``index/hnsw.py``, built with the ``hnsw_*`` knobs of
+``utils/config.py``, as the reference's ``_make_index``).  The sharded
+engines of the reference raise ``NotImplementedError`` naming their ROADMAP
+item (multi-device).  The engine picks the index
 of new versions and of versions rebuilt from a WAL alone; a snapshot names
 its own index type.  The hnsw knobs come from the ``config`` the caller
 passes (``get_config()`` without one); ``hnsw_seed_probes > 0`` routes a
@@ -36,6 +38,7 @@ from pathlib import Path
 
 import torch
 
+from embeddinghub_tpu_torch.index.flat import FlatIndex
 from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
 from embeddinghub_tpu_torch.ops import distance as dist_ops
 from embeddinghub_tpu_torch.store.space import DEFAULT_VERSION, Space
@@ -45,9 +48,6 @@ from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
 
 # engine -> the ROADMAP.md queue 1 item that ports it
 _NOT_PORTED = {
-    "flat-bf16": "quantized flat arenas",
-    "flat-int8": "quantized flat arenas",
-    "flat-int8x2": "quantized flat arenas",
     "sharded": "multi-device",
     "sharded-int8": "multi-device",
     "sharded-int8x2": "multi-device",
@@ -68,7 +68,7 @@ class EmbeddingHub:
                 f"engine {engine!r} is not ported yet; see ROADMAP.md queue 1, "
                 f"{_NOT_PORTED[engine]}"
             )
-        if engine not in ("flat", "hnsw"):
+        if engine not in ("flat", "hnsw", *self._QUANTIZED):
             raise ValueError(f"unknown engine {engine!r}")
         self.config = config if config is not None else get_config()
         self.base_path = Path(base_path) if base_path is not None else None
@@ -90,11 +90,21 @@ class EmbeddingHub:
     def in_memory(cls, **kw) -> "EmbeddingHub":
         return cls(None, **kw)
 
+    _QUANTIZED = {
+        "flat-bf16": "bfloat16",
+        "flat-int8": "int8",
+        "flat-int8x2": "int8x2",
+    }
+
     def _make_index(self, dims: int, metric: str):
         """The index of a new version: ``None`` (the version's default
-        ``FlatIndex``) or an ``HNSWIndex`` from the configuration."""
+        ``FlatIndex``), a quantized ``FlatIndex``, or an ``HNSWIndex`` from
+        the configuration."""
         if self.engine == "flat":
             return None
+        if self.engine in self._QUANTIZED:
+            return FlatIndex(dims, metric=metric, storage_dtype=self._QUANTIZED[self.engine],
+                             device=self.device)
         cfg = self.config
         idx = HNSWIndex(dims, metric=metric, m=cfg.hnsw_m,
                         ef_construction=cfg.hnsw_ef_construction,

@@ -10,6 +10,8 @@ The twin of ``embeddinghub_tpu/store/version.py``:
     acknowledged write is in the log and a snapshot taken under the same
     lock never truncates one away;
   * immutability is enforced at write time (``ImmutableVersionError``);
+    freezing runs the quantization audit when ``EMBEDDINGHUB_QUANT_AUDIT``
+    is "freeze";
   * the iterator yields a stable snapshot for Download;
   * keyed nearest-neighbor queries over-fetch k+1 and drop the key itself.
 """
@@ -25,6 +27,7 @@ from embeddinghub_tpu_torch.index.base import Index
 from embeddinghub_tpu_torch.index.flat import FlatIndex
 from embeddinghub_tpu_torch.store import errors
 from embeddinghub_tpu_torch.store.keymap import KeyMap
+from embeddinghub_tpu_torch.utils.config import get_config
 from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 
 
@@ -106,6 +109,26 @@ class Version:
             self.immutable = True
             if self._wal is not None:
                 self._wal.append_freeze()
+        # Freezing is the load -> serve transition, where the measured
+        # quantization audit is cheap next to the load and early enough to
+        # come before any query (the reference's, opt-in:
+        # EMBEDDINGHUB_QUANT_AUDIT=freeze).
+        cfg = get_config()
+        if cfg.quant_audit == "freeze":
+            self.audit_quantization(bar=cfg.quant_audit_bar)
+
+    def audit_quantization(self, bar: float = 0.95, nq: int = 64) -> dict:
+        """The measured quantization audit of a quantized flat arena
+        (``FlatIndex.audit_and_escalate``): device recall against an exact
+        host oracle, the pool widened or the dtype escalated until ``bar``
+        clears or nothing wider fits.  Returns its report; for any other
+        index an empty one."""
+        with self.lock:
+            fn = getattr(self.index, "audit_and_escalate", None)
+            if fn is None or getattr(self.index, "storage_dtype", "float32") \
+                    not in ("int8", "int8x2", "bfloat16"):
+                return {"audited": [], "escalated": [], "fit_blocked": None}
+            return fn(bar=bar, nq=nq)
 
     # ------------------------------------------------------------------- read
 

@@ -1,8 +1,8 @@
 """Environment-driven configuration of the port's server: the fields of the
 JAX package's ``utils/config.py`` that the port reads, under the same
 environment variables, so one deployment configures both packages alike.
-The JAX package's other knobs (quantization audit, compute dtype, initial
-capacity, mesh) belong to modules that are not ported yet.
+The JAX package's other knobs (compute dtype, initial capacity, mesh)
+belong to modules that are not ported yet.
 
 Mirrors the reference's env-var config style (reference:
 ``main/main.go:59-66`` / ``config/config.go``) with typed accessors.
@@ -35,7 +35,8 @@ class Config:
     data_dir: str = "embedding_store.dat"
 
     # Engine knobs
-    engine: str = "flat"                # "flat" | "hnsw" (store/hub.py)
+    engine: str = "flat"                # "flat" | "flat-bf16" | "flat-int8" |
+                                        # "flat-int8x2" | "hnsw" (store/hub.py)
     default_metric: str = "l2"          # "l2" | "cosine" | "ip"
     query_batch_window_ms: float = 2.0  # server-side batching window
     max_query_batch: int = 1024
@@ -48,6 +49,13 @@ class Config:
     hnsw_ef_search: int = 10
     hnsw_seed_probes: int = 0
     hnsw_route_min: int = 1 << 20
+
+    # The measured quantization audit (FlatIndex.audit_and_escalate):
+    # "freeze" runs it when a version is made immutable, escalating a
+    # quantized arena's dtype until device recall against an exact host
+    # oracle reaches quant_audit_bar.
+    quant_audit: str = "off"            # "off" | "freeze"
+    quant_audit_bar: float = 0.95
 
     @staticmethod
     def from_env() -> "Config":
@@ -64,6 +72,8 @@ class Config:
             hnsw_ef_search=_env_int("EMBEDDINGHUB_HNSW_EF", 10),
             hnsw_seed_probes=_env_int("EMBEDDINGHUB_HNSW_SEED_PROBES", 0),
             hnsw_route_min=_env_int("EMBEDDINGHUB_HNSW_ROUTE_MIN", 1 << 20),
+            quant_audit=_env("EMBEDDINGHUB_QUANT_AUDIT", "off"),
+            quant_audit_bar=float(_env("EMBEDDINGHUB_QUANT_AUDIT_BAR", "0.95")),
         )
 
 

@@ -116,11 +116,17 @@ def test_from_jax_state(metric):
 
 
 def test_unported_arenas_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatIndex(D, storage_dtype="int8", device="cpu")
+    """Every storage dtype of the reference builds (the quantized arenas
+    are ported); an unknown dtype and an unknown snapshot code raise."""
+    for dtype in ("bfloat16", "int8", "int8x2"):
+        assert FlatIndex(D, storage_dtype=dtype, device="cpu").storage_dtype == dtype
+        state = JaxFlat(D, storage_dtype=dtype).state_arrays()
+        assert FlatIndex.from_state(D, "l2", state, device="cpu").storage_dtype == dtype
+    with pytest.raises(ValueError, match="storage_dtype"):
+        FlatIndex(D, storage_dtype="int4", device="cpu")
     state = JaxFlat(D).state_arrays()
-    state["flat_meta"] = np.asarray([2, 1], np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    state["flat_meta"] = np.asarray([7, 1], np.int32)
+    with pytest.raises(ValueError, match="storage code"):
         FlatIndex.from_state(D, "l2", state, device="cpu")
 
 

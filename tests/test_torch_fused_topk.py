@@ -154,8 +154,13 @@ def test_cpu_tensors_never_launch():
     F.exact_topk(*_t(q, x, valid, xsq), k=4, metric="ip")
     F.approx_candidates(*_mirrored(*_t(q, x, valid, xsq)), k=2, metric="ip")
     F.exact_topk_large_k(*_t(q, x, valid, xsq), k=200, metric="ip")
+    # K2's candidate pools: the int8 instantiation and the bf16 scan
+    qt, xt, vt, st = _t(q, x, valid, xsq)
+    hi = torch.clamp(torch.round(xt * 20), -127, 127).to(torch.int8)
+    F.pool_candidates(qt, hi, vt, st, torch.full_like(st, 0.05), k=3, metric="ip")
+    F.pool_candidates(qt, F.arena_bf16(xt), vt, st, k=3, metric="ip")
     assert F.LAUNCHES == {"fused_topk_search": 0, "fused_topk_search_v2": 0,
-                          "fused_topk_search_large_k": 0}
+                          "fused_topk_search_large_k": 0, "fused_topk_search_v2_int8": 0}
 
 
 def test_mirror_pads_to_whole_boxes():

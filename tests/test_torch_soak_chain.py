@@ -11,7 +11,10 @@ least 0.85.
 
 Writers stop after ``--rows`` rows a segment, so the store grows by a
 bounded share (the reference's writers run free, and its recall measure
-then counts the rows they add as misses).  Every wait is bounded.
+then counts the rows they add as misses).  A segment runs its seconds and
+then on until it has set and deleted at least once, so a loaded host
+cannot end it (or kill it) before it wrote; that wait is bounded by
+``GRACE_S``, and every segment by ``SEGMENT_TIMEOUT_S``.
 
     python tests/test_torch_soak_chain.py --dir DIR --seconds 6 [--kill]
 """
@@ -30,7 +33,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPACE, DIMS, BASE, K = "soak", 16, 3000, 10
-SEGMENT_TIMEOUT_S = 50
+GRACE_S = 40
+SEGMENT_TIMEOUT_S = 120
 
 
 def _base():
@@ -152,12 +156,18 @@ def segment(args) -> None:
 
     threads = [threading.Thread(target=guard(fn), daemon=True)
                for fn in (writer(0), writer(1), deleter, searcher, reader, snapshotter)]
+
+    def wrote():
+        with lock:
+            return counts["inserts"] > 0 and counts["deletes"] > 0
+
     t0 = time.perf_counter()
     for t in threads:
         t.start()
-    while time.perf_counter() - t0 < args.seconds and not stop.is_set():
+    while not stop.is_set():
         time.sleep(0.2)
-        if args.kill and time.perf_counter() - t0 > 0.6 * args.seconds:
+        elapsed = time.perf_counter() - t0
+        if args.kill and elapsed > 0.6 * args.seconds and wrote():
             with lock:  # what must survive: every acknowledged write so far
                 state = {"segment": seg, "killed": True, "acked": acked,
                          "deleted": deleted}
@@ -166,6 +176,9 @@ def segment(args) -> None:
                 os.replace(state_path + ".tmp", state_path)
                 rep(stage="killing", **counts)
                 os._exit(137)  # a crash: no close, no save, writers mid-write
+        if elapsed >= args.seconds + GRACE_S or (
+                elapsed >= args.seconds and wrote()):
+            break
     stop.set()
     for t in threads:
         t.join(timeout=20)

@@ -109,9 +109,13 @@ def test_hub_semantics():
     assert sorted(hub.spaces()) == ["a", "b"]
     hub.delete_space("a")
     assert hub.get_space("a") is None and hub.get_version("a") is None
-    for engine in ("hnsw-sharded", "flat-int8", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for engine in ("hnsw-sharded", "sharded"):
+        with pytest.raises(NotImplementedError, match="multi-device"):
             EmbeddingHub.in_memory(engine=engine)
+    quant = EmbeddingHub.in_memory(engine="flat-int8", device="cpu").create_space("q", D)
+    index = quant.default_version().index
+    assert type(index).__name__ == "FlatIndex" and index.storage_dtype == "int8"
+    assert index.quant_guard and index.device.type == "cpu"
     graph = EmbeddingHub.in_memory(engine="hnsw", device="cpu").create_space("g", D)
     assert type(graph.default_version().index).__name__ == "HNSWIndex"
     with pytest.raises(ValueError):
