@@ -54,6 +54,12 @@ Phases, each of which must pass or the script exits non-zero:
    with its bound
    (int8 operations at 1,979 TOPS) and library_ms (torch._int_mm of the
    int8 queries and the plane, per arena chunk; none below 17 queries).
+   Phase 12's shapes are cases too, one shard's each: K1 at B=4096, k=16
+   (cosine, exact) over 250,000 live rows in 262,144; its build pool at
+   B=4096, k=256 (bf16 operands) over the same; its wave pool at B=1,024,
+   k=200 over the 251,024-row live prefix; and K2's int8 pool at B=1,024
+   and B=8 over 16 segments of 2**18 rows of which 2,500,000 (and the
+   streamed rows) are live.
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -160,15 +166,44 @@ Phases, each of which must pass or the script exits non-zero:
    snapshot (store/persistence.save_version, what hub.save writes for it)
    and a reopen that must quantize nothing and give the same lists.
 
+12. The sharded engines (parallel/) on Mesh(["cuda"] * 4), four shards of
+   the one card.  (a) EmbeddingHub(engine="sharded") filled with phase 3's
+   1M x 128 cosine rows in 4,096-row multisets (250,000 rows a shard in a
+   local capacity of 2**18) -> nearest_batch of 4,096 queries at k=10: one
+   K1 launch a shard, ms a call, device ms, a torch.profiler split (the K1
+   scans, the rest: the merge of the [B, 4 x 16] lists); the lists equal
+   one card's FlatIndex.search(mode="exact") up to ties (slots within 1e-5)
+   and recall@10 against those exact lists >= 0.999.  (b) Phase 11's
+   Deep-10M rows (no second draw) in EmbeddingHub(engine="sharded-int8"),
+   one multiset: 2,500,000 rows a shard in 2**22 local rows, the deep path
+   (16 chunks of 2**18 rows, K2's int8 pool once a shard) -> the first
+   search runs the guard, which must escalate int8 -> int8x2 -> B=1,024:
+   ms, device ms and split, recall@10 of the 256 recall queries >= 0.977
+   against phase 11's K1 oracle -> 4 multisets of 8,192 new rows, a search
+   after each (the scatter); 64 of them must find themselves -> the
+   version's snapshot (store/persistence.save_version; the in-memory hub
+   keeps no 4 GB WAL of the 10M rows) and a reopen onto the same mesh
+   (load_version(mesh=...)): int8x2 from sflat_meta, the same lists.  (c)
+   Phase 8's 1M SIFT-proxy rows in EmbeddingHub(engine="hnsw-sharded",
+   M=16, efC=200) on a data directory, one multiset with the WAL on: four
+   exact bulk builds of 250,000 rows (K1's pools), their seconds ->
+   recall@10 at ef 50/100/200 against an exact K1 oracle (>= 0.95 at
+   ef=100) and device ms per 1,024-query batch -> 2 multisets of 4,096 new
+   rows (seed 3; a wave of 1,024 rows a shard, K1's pools) -> hub.save()
+   and a reopen onto the mesh: the same lists.  A [sharded] line prints a
+   JSON object of shards, rows a shard, ms, recall and the guard's dtype
+   and recall.
+
 The launch counters are zeroed just before each path (main: phases 3-4;
-restore: 5; offline: 7; graph: 8; writes: 9; cluster: 10; quantized: 11)
-and read just after it; the crash
+restore: 5; offline: 7; graph: 8; writes: 9; cluster: 10; quantized: 11;
+sharded: 12) and read just after it; the crash
 path's (6) are those its restarted server process reports.  Each path must
 have launched the kernels it runs.  The second-to-last line is a JSON
 summary of the kernels, an entry per summary case: "launches" is the main
 path's count (the graph path's for the build's pool cases, the writes
 path's for the waves', the cluster path's for the cluster-routed build's,
-the quantized path's for the pools), "paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
+the quantized path's for the pools, the sharded path's for its shapes),
+"paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
 numpy with a fixed seed.
 """
 
@@ -263,6 +298,25 @@ DEEP_STREAM, DEEP_WAVE, DEEP_SELF = 100_000, 8192, 64
 # The reference served recall@10 0.9871 after its guard escalated int8 to
 # int8x2 (RESULTS.md:159-162); the bar allows 0.01 for the sample.
 DEEP_RECALL = 0.977
+# Phase 12, the sharded engines on a mesh of SHARDS shards of one card: (a)
+# phase 3's 1M x 128 cosine rows in a "sharded" store (250,000 live rows in
+# a local capacity of 2**18 a shard: K1 at k=16 on each); (b) phase 11's
+# Deep-10M rows in a "sharded-int8" store (2,500,000 a shard in 2**22 local
+# rows, past the 2**21-row shard threshold: K2's int8 pool over 16 chunks of
+# 2**18 rows, 256 candidates each), then SHARD_STREAMS multisets of
+# DEEP_WAVE new rows; (c) phase 8's 1M SIFT-proxy rows in an "hnsw-sharded"
+# store: four exact bulk builds of 250,000 rows (K1's pools at k=256 over
+# 262,144 padded rows), then SHARD_GRAPH_WAVES multisets of FLUSH rows (a
+# wave of 1,024 rows a shard: K1's layer-0 pool at k=200 over the shard's
+# live prefix).
+SHARDS = 4
+SHARD_CAP, SHARD_ROWS = 1 << 18, ROWS // SHARDS
+SHARD_RECALL, SHARD_TIE = 0.999, 1e-5
+SHARD_DEEP_CAP, SHARD_DEEP_ROWS = 1 << 22, DEEP_ROWS // SHARDS
+SHARD_DEEP_CHUNK = 1 << 18  # parallel/sharded_flat._DEEP_CHUNK
+SHARD_STREAMS, SHARD_SELF = 4, 64
+SHARD_GRAPH_WAVES = 2
+SHARD_WAVE_B = FLUSH // SHARDS
 # (kernel, metric, B, k, exact, capacity, live rows) compared with its plain
 # version, at every shape a path gives it; exact is K1's operand precision
 # (None for K2, which is always bf16).
@@ -294,6 +348,10 @@ KERNEL_CASES = (
     ("fused_topk_search_v2", "cosine", 1, 128, None, WIRE_CAP, OFFLINE_ROWS),   # offline
     ("fused_topk_search_large_k", "l2", 1, BIG_K, True, WIRE_CAP, WIRE_ROWS),   # wire
     ("fused_topk_search_large_k", "cosine", BIG_B, BIG_K, True, CAP, ROWS),     # restore
+    ("fused_topk_search", "cosine", MAIN_B, 16, True, SHARD_CAP, SHARD_ROWS),   # sharded
+    ("fused_topk_search", "l2", GRAPH_POOL_B, GRAPH_POOL_K, False, SHARD_CAP, SHARD_ROWS),
+    ("fused_topk_search", "l2", SHARD_WAVE_B, WAVE_POOL_K, False, SHARD_ROWS + SHARD_WAVE_B,
+     SHARD_ROWS + SHARD_WAVE_B),
 )
 # K2's candidate pools (phase 11's phase 1) compared with their plain
 # version, at every shape phase 11 gives them: (kernel, metric, B, k,
@@ -316,6 +374,11 @@ QUANT_CASES = (
      DEEP_DIMS, 1 << 20),
     ("fused_topk_search_v2", "cosine", DEEP_B, 128, DEEP_CAP, DEEP_ROWS, DEEP_DIMS,
      DEEP_CHUNK),
+    # phase 12 (b): one shard's deep int8x2 arena, its searches of 1,024 and 8
+    ("fused_topk_search_v2_int8", "cosine", DEEP_B, 256, SHARD_DEEP_CAP, SHARD_DEEP_ROWS,
+     DEEP_DIMS, SHARD_DEEP_CHUNK),
+    ("fused_topk_search_v2_int8", "cosine", 8, 256, SHARD_DEEP_CAP,
+     SHARD_DEEP_ROWS + SHARD_STREAMS * DEEP_WAVE // SHARDS, DEEP_DIMS, SHARD_DEEP_CHUNK),
 )
 # The quantized cases the summary line reports: (kernel, B, k, capacity,
 # segment) -> (label, the reference's XLA scan it replaces).
@@ -326,6 +389,8 @@ QUANT_SUMMARY = {
         ("deep int8 pool", "embeddinghub_tpu/ops/topk.py:697-710"),
     ("fused_topk_search_v2", DEEP_B, 128, DEEP_CAP, DEEP_CHUNK):
         ("deep bf16 pool", "embeddinghub_tpu/ops/topk.py:697-710"),
+    ("fused_topk_search_v2_int8", DEEP_B, 256, SHARD_DEEP_CAP, SHARD_DEEP_CHUNK):
+        ("sharded deep int8 pool", "embeddinghub_tpu/ops/topk.py:697-710"),
 }
 # Published peaks of one H100 SXM (dense): bf16 and TF32 tensor cores, f32
 # FMA outside them, HBM3.
@@ -347,13 +412,17 @@ SUMMARY = {
     ("l2", FLUSH, ROUTED_K, False, ROUTED_S): ("fused_topk_search", "routed pool"),
     ("l2", FLUSH, GRAPH_POOL_K, False, BIG_ROWS): ("fused_topk_search",
                                                    "boundary repair pool"),
+    ("cosine", MAIN_B, 16, True, SHARD_CAP): ("fused_topk_search", "sharded"),
+    ("l2", GRAPH_POOL_B, GRAPH_POOL_K, False, SHARD_CAP): ("fused_topk_search",
+                                                           "sharded graph pool"),
 }
 # the path whose launches a summary case reports
 CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "graph",
              "wave pool": "writes", "wave upper-layer pool": "writes",
              "routed pool": "cluster", "boundary repair pool": "cluster",
              "int8 pool": "quantized", "deep int8 pool": "quantized",
-             "deep bf16 pool": "quantized"}
+             "deep bf16 pool": "quantized", "sharded": "sharded",
+             "sharded graph pool": "sharded", "sharded deep int8 pool": "sharded"}
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
 
@@ -1900,6 +1969,269 @@ def phase_quantized(torch, x_host, launches):
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[quantized] phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # phase 12 (b) takes the same rows, queries, oracle and generator
+    return {"x": x, "centers": centers, "rng": rng, "qv": qv, "padded": padded,
+            "oracle": oracle}
+
+
+def sharded_split(torch, fn, runs: int = 3) -> str:
+    """Where a sharded search's time goes: a torch.profiler trace of
+    ``runs`` calls, the device time of K1's kernels (the shards' scans and
+    their split merges), K2's (the shards' int8 pools), and everything else
+    (the reranks, the merge of the shards' lists, copies), against the wall
+    time, with the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    parts = {"K1": 0.0, "K2": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name
+        part = ("K1" if "k1_scan_kernel" in name or name.startswith("merge_kernel")
+                else "K2" if "k2_" in name or "row_scale" in name else "other")
+        parts[part] += e.time_range.elapsed_us()
+    busy = sum(parts.values())
+    return (f"wall {wall_us / runs / 1e3:.3f} ms a call, device busy "
+            f"{busy / runs / 1e3:.3f} (" + ", ".join(
+                f"{k} {v / runs / 1e3:.3f}" for k, v in parts.items())
+            + f"), idle share {1 - busy / wall_us:.3f}")
+
+
+def timed_calls(fn, runs: int = 3) -> float:
+    """Median host seconds of ``runs`` calls of ``fn``."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
+    """Phase 12: the sharded engines on a mesh of SHARDS shards of one card."""
+    from embeddinghub_tpu_torch.index.flat import FlatIndex
+    from embeddinghub_tpu_torch.ops import distance as D
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+    from embeddinghub_tpu_torch.parallel import Mesh, ShardedFlatIndex, ShardedHNSWIndex
+    from embeddinghub_tpu_torch.store import persistence
+    from embeddinghub_tpu_torch.store.hub import EmbeddingHub
+    from embeddinghub_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    mesh = Mesh([CARD] * SHARDS)
+    line = {"shards": SHARDS}
+
+    # (a) sharded f32: 1M x 128 cosine, 4,096-row multisets
+    queries = np.random.default_rng(SEED + 12).standard_normal((MAIN_B, DIMS),
+                                                               dtype=np.float32)
+    hub = EmbeddingHub.in_memory(engine="sharded", mesh=mesh)
+    version = hub.create_space("sharded", DIMS, "cosine").default_version()
+    index = version.index
+    check(isinstance(index, ShardedFlatIndex) and index.mesh.size == SHARDS,
+          "engine=sharded did not give a ShardedFlatIndex on the mesh")
+    keys = [f"k{j}" for j in range(ROWS)]
+    t0 = time.perf_counter()
+    for s in range(0, ROWS, FLUSH):
+        version.multiset(zip(keys[s:s + FLUSH], x_host[s:s + FLUSH]))
+    ingest_s = time.perf_counter() - t0
+    check(index._cap_local == SHARD_CAP, f"local capacity {index._cap_local}")
+    before = launches["fused_topk_search"]
+    t0 = time.perf_counter()
+    got = version.nearest_batch(queries, MAIN_K)
+    first_s = time.perf_counter() - t0
+    check(launches["fused_topk_search"] - before == SHARDS,
+          f"a sharded search launched K1 {launches['fused_topk_search'] - before} times")
+    steady = timed_calls(lambda: version.nearest_batch(queries, MAIN_K))
+    qp = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    dev_ms = device_ms(torch, lambda: index.search_device(qp, 16))
+    split = sharded_split(torch, lambda: version.nearest_batch(queries, MAIN_K))
+    sd, si = index.search(queries, MAIN_K)
+    check([[f"k{r}" for r in row] for row in si] == got, "nearest_batch != search")
+    flat = FlatIndex(DIMS, "cosine", capacity=CAP, device=CARD)
+    flat.add(np.arange(ROWS), x_host)
+    fd, fi = flat.search(queries, MAIN_K, mode="exact")
+    del flat
+    swaps = si != fi
+    check(np.abs(sd - fd).max() <= SHARD_TIE, "sharded distances differ from one card's")
+    if swaps.any():  # ties: the sharded row lies within SHARD_TIE of the slot
+        qn = qp[np.nonzero(swaps)[0]]
+        xr = x_host[si[swaps]]
+        true_d = 1 - np.einsum("nd,nd->n", xr / np.linalg.norm(xr, axis=1, keepdims=True), qn)
+        check(np.abs(true_d - fd[swaps]).max() <= SHARD_TIE,
+              "sharded lists differ from one card's beyond ties")
+    recall = recall_at(si, fi)
+    line.update(f32_rows_per_shard=SHARD_ROWS, f32_ms=round(steady * 1e3, 3),
+                f32_device_ms=round(dev_ms, 3), f32_recall=recall)
+    print(f"[sharded] (a) {SHARDS} shards of {CARD}, 1M x {DIMS} cosine, {SHARD_ROWS} "
+          f"rows a shard (local capacity {index._cap_local}): multiset in {FLUSH}-row "
+          f"batches {ingest_s:.2f} s ({ROWS / ingest_s:.0f} rows/s); nearest_batch "
+          f"B={MAIN_B} k={MAIN_K}: first (full sync) {first_s * 1e3:.1f} ms, steady "
+          f"{steady * 1e3:.1f} ms ({MAIN_B / steady:.0f} queries/s), device "
+          f"{dev_ms:.3f} ms a search ({SHARDS} K1 scans and the merge); the lists "
+          f"equal one card's FlatIndex exact lists ({int(swaps.sum())} tie swaps); "
+          f"recall@{MAIN_K} {recall:.5f} (bar {SHARD_RECALL}); nearest_batch: {split}",
+          flush=True)
+    check(recall >= SHARD_RECALL, f"sharded recall@{MAIN_K} {recall} < {SHARD_RECALL}")
+    del hub, version, index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) sharded-int8, Deep-10M: phase 11's rows, one multiset
+    x, qv, padded, oracle, rng = deep["x"], deep["qv"], deep["padded"], deep["oracle"], \
+        deep["rng"]
+    hub = EmbeddingHub.in_memory(engine="sharded-int8", mesh=mesh)
+    version = hub.create_space("deep", DEEP_DIMS, "cosine").default_version()
+    index = version.index
+    t0 = time.perf_counter()
+    version.multiset(zip((f"d{j}" for j in range(DEEP_ROWS)), x))
+    ingest_s = time.perf_counter() - t0
+    check(index._cap_local == SHARD_DEEP_CAP and index.storage_dtype == "int8",
+          f"local capacity {index._cap_local}, storage {index.storage_dtype}")
+    before = launches["fused_topk_search_v2_int8"]
+    t0 = time.perf_counter()
+    index.search(qv, MAIN_K)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(launches["fused_topk_search_v2_int8"] - before == SHARDS,
+          "a deep sharded search did not launch K2's int8 pool once a shard")
+    guard = index.guard_recalls.get("int8", float("nan"))
+    print(f"[sharded] (b) Deep-10M: one multiset of {DEEP_ROWS} keyed rows "
+          f"{ingest_s:.1f} s; first search (guard, quantize and upload, search) "
+          f"{first_s:.2f} s; the guard escalated int8 -> {index.storage_dtype} at a "
+          f"sampled recall@10 of {guard:.4f} ({index.guard_recalls})", flush=True)
+    check(index.storage_dtype == "int8x2", f"the guard kept {index.storage_dtype}")
+    steady = timed_calls(lambda: version.nearest_batch(qv, MAIN_K))
+    dev_ms = device_ms(torch, lambda: index.search_device(
+        qv / np.linalg.norm(qv, axis=1, keepdims=True), 16))
+    split = sharded_split(torch, lambda: version.nearest_batch(qv, MAIN_K))
+    recall = recall_at(index.search(padded, MAIN_K)[1][:DEEP_RECALL_Q], oracle)
+    print(f"[sharded] (b) nearest_batch B={DEEP_B} k={MAIN_K}: {steady * 1e3:.1f} ms "
+          f"({DEEP_B / steady:.0f} queries/s), device {dev_ms:.3f} ms a search ({SHARDS} "
+          f"shards of {SHARD_DEEP_ROWS} rows in {SHARD_DEEP_CAP // SHARD_DEEP_CHUNK} chunks "
+          f"of {SHARD_DEEP_CHUNK}); recall@{MAIN_K} of {DEEP_RECALL_Q} queries "
+          f"{recall:.4f} (bar {DEEP_RECALL}); nearest_batch: {split}", flush=True)
+    check(recall >= DEEP_RECALL, f"sharded deep recall@{MAIN_K} {recall} < {DEEP_RECALL}")
+    line.update(deep_rows_per_shard=SHARD_DEEP_ROWS, deep_ms=round(steady * 1e3, 3),
+                deep_device_ms=round(dev_ms, 3), deep_recall=recall,
+                guard_dtype=index.storage_dtype, guard_recall=guard)
+    streamed = []
+    t0 = time.perf_counter()
+    for j in range(SHARD_STREAMS):
+        rows = deep_rows(rng, deep["centers"], DEEP_WAVE)
+        streamed.append(rows)
+        version.multiset(zip((f"s{j * DEEP_WAVE + i}" for i in range(DEEP_WAVE)), rows))
+        check(index._dirty_rows and not index._dirty, "not a scatter")
+        version.nearest_batch(rows[:8], MAIN_K)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    streamed = np.concatenate(streamed)
+    sample = rng.choice(len(streamed), SHARD_SELF, replace=False)
+    hit = index.search(streamed[sample], MAIN_K)[1]
+    found = float(np.mean([DEEP_ROWS + sample[j] in hit[j] for j in range(SHARD_SELF)]))
+    check(version.size == DEEP_ROWS + len(streamed), f"size {version.size}")
+    print(f"[sharded] (b) {SHARD_STREAMS} multisets of {DEEP_WAVE} rows, a search after "
+          f"each (the scatter): {stream_s:.2f} s; {SHARD_SELF} streamed rows find "
+          f"themselves: {found}", flush=True)
+    check(found == 1.0, f"streamed self-recall {found}")
+    want = index.search(qv, MAIN_K)[1]
+    t0 = time.perf_counter()
+    persistence.save_version(base / "deep", version)
+    save_s = time.perf_counter() - t0
+    del hub, version, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    version = persistence.load_version(base / "deep", device=CARD, mesh=mesh)
+    index = version.index
+    again = index.search(qv, MAIN_K)[1]
+    reopen_s = time.perf_counter() - t0
+    check(isinstance(index, ShardedFlatIndex) and index.storage_dtype == "int8x2"
+          and index.mesh is mesh, f"reopened {type(index).__name__} {index.storage_dtype}")
+    check(np.array_equal(again, want), "the deep lists differ after the reopen")
+    print(f"[sharded] (b) snapshot {save_s:.2f} s ({dir_bytes(base / 'deep')} bytes); "
+          f"reopen onto the {SHARDS}-shard mesh and first search {reopen_s:.2f} s "
+          f"(int8x2 from sflat_meta, planes quantized again): the same lists", flush=True)
+    del version, index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) hnsw-sharded: phase 8's 1M SIFT-proxy rows, one multiset
+    train, test = graph_rows
+    config = Config(engine="hnsw-sharded", hnsw_m=GRAPH_M, hnsw_ef_construction=GRAPH_EFC)
+    hub = EmbeddingHub.load_or_create(base / "graph", engine="hnsw-sharded", mesh=mesh,
+                                      config=config)
+    version = hub.create_space("graph", DIMS, "l2").default_version()
+    index = version.index
+    check(isinstance(index, ShardedHNSWIndex) and index.n_shards == SHARDS,
+          "engine=hnsw-sharded did not give a ShardedHNSWIndex on the mesh")
+    keys = [f"g{j}" for j in range(ROWS)]
+    before = launches["fused_topk_search"]
+    t0 = time.perf_counter()
+    version.multiset(zip(keys, train))
+    ingest_s = time.perf_counter() - t0
+    built = launches["fused_topk_search"] - before
+    check(built > 0, "the shards' bulk builds did not launch K1")
+    build_s = sum(sum(sh.build_seconds.values()) for sh in index._shards)
+    x_dev = torch.from_numpy(train).to(CARD)
+    _, oracle = F.exact_topk(torch.from_numpy(test).to(CARD), x_dev,
+                             torch.ones(ROWS, dtype=torch.bool, device=CARD),
+                             D.sqnorms(x_dev), k=GRAPH_K, metric="l2", exact=True)
+    oracle = oracle.cpu().numpy()
+    del x_dev
+    print(f"[sharded] (c) hnsw-sharded 1M x {DIMS} l2, M={GRAPH_M} efC={GRAPH_EFC}, "
+          f"{SHARD_ROWS} rows a shard: one multiset with the WAL on {ingest_s:.2f} s; "
+          f"the {SHARDS} bulk builds {build_s:.2f} s ("
+          + "; ".join(f"{sum(sh.build_seconds.values()):.2f}" for sh in index._shards)
+          + f"); K1 launched {built} times", flush=True)
+    recalls, walk_ms = {}, {}
+    for ef in GRAPH_EFS:
+        ids = index.search(test, GRAPH_K, ef=ef)[1]
+        recalls[ef] = recall_at(ids, oracle)
+        walk_ms[ef] = device_ms(torch, lambda: index.search(test, GRAPH_K, ef=ef))
+        print(f"[sharded] (c) search B={GRAPH_QUERIES} k={GRAPH_K} ef={ef}: recall@"
+              f"{GRAPH_K} {recalls[ef]:.4f}; {walk_ms[ef]:.3f} ms per batch", flush=True)
+    check(recalls[100] >= GRAPH_RECALL,
+          f"sharded graph recall@10 at ef=100 {recalls[100]} < {GRAPH_RECALL}")
+    line.update(graph_rows_per_shard=SHARD_ROWS, graph_build_s=round(build_s, 3),
+                graph_recall={str(ef): r for ef, r in recalls.items()},
+                graph_ms={str(ef): round(v, 3) for ef, v in walk_ms.items()})
+    new = sift_rows(SHARD_GRAPH_WAVES * FLUSH, 3)
+    before = launches["fused_topk_search"]
+    t0 = time.perf_counter()
+    for j in range(SHARD_GRAPH_WAVES):
+        version.multiset(zip((f"w{j * FLUSH + i}" for i in range(FLUSH)),
+                             new[j * FLUSH:(j + 1) * FLUSH]))
+    waves_s = time.perf_counter() - t0
+    check(launches["fused_topk_search"] > before, "the waves did not launch K1")
+    check(version.size == ROWS + len(new), f"size {version.size}")
+    want = version.nearest_batch(test, GRAPH_K)
+    t0 = time.perf_counter()
+    hub.save()
+    save_s = time.perf_counter() - t0
+    del hub, version, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hub = EmbeddingHub.load_or_create(base / "graph", engine="hnsw-sharded", mesh=mesh,
+                                      config=config)
+    reopen_s = time.perf_counter() - t0
+    check(hub.get_version("graph").nearest_batch(test, GRAPH_K) == want,
+          "the sharded graph's lists differ after the reopen")
+    print(f"[sharded] (c) {SHARD_GRAPH_WAVES} multisets of {FLUSH} rows (a wave of "
+          f"{SHARD_WAVE_B} a shard): {waves_s:.2f} s ({len(new) / waves_s:.0f} rows/s); "
+          f"save {save_s:.2f} s, reopen {reopen_s:.2f} s: the same lists", flush=True)
+    del hub
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"[sharded] {json.dumps(line)}", flush=True)
 
 
 REPLACES = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
@@ -1981,6 +2313,7 @@ def main() -> int:
              "writes": ("fused_topk_search",),
              "cluster": ("fused_topk_search",),
              "quantized": ("fused_topk_search_v2_int8", "fused_topk_search_v2"),
+             "sharded": ("fused_topk_search", "fused_topk_search_v2_int8"),
              "crash": ("fused_topk_search",)}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
                       ("offline", lambda: phase_offline(torch, x_host))):
@@ -2000,6 +2333,7 @@ def main() -> int:
             paths["writes"] = dict(F.LAUNCHES)
         finally:
             close_graph(torch, ctx)
+    graph_rows = (ctx["train"], ctx["test"])  # phase 12 (c) builds on them too
     # the cluster path: the 4M cluster-routed build (phase 10)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as tmp:
         F.reset_launches()
@@ -2007,8 +2341,14 @@ def main() -> int:
         paths["cluster"] = dict(F.LAUNCHES)
     # the quantized path: the flat-bf16/int8/int8x2 stores and Deep-10M (phase 11)
     F.reset_launches()
-    phase_quantized(torch, x_host, F.LAUNCHES)
+    deep = phase_quantized(torch, x_host, F.LAUNCHES)
     paths["quantized"] = dict(F.LAUNCHES)
+    # the sharded path: the sharded engines on four shards of the card (phase 12)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        F.reset_launches()
+        phase_sharded(torch, x_host, F.LAUNCHES, deep, graph_rows, Path(tmp))
+        paths["sharded"] = dict(F.LAUNCHES)
+    del deep, graph_rows
     # the crash path's kernels run in the server subprocess, which reports them
     crash = phase_crash(torch, x_host)
     if crash is not None:

@@ -1,0 +1,5 @@
+"""Scale-out over a mesh of shards: the twin of ``embeddinghub_tpu/parallel``."""
+
+from embeddinghub_tpu_torch.parallel.mesh import Mesh, default_mesh, shard_axis  # noqa: F401
+from embeddinghub_tpu_torch.parallel.sharded_flat import ShardedFlatIndex  # noqa: F401
+from embeddinghub_tpu_torch.parallel.sharded_hnsw import ShardedHNSWIndex  # noqa: F401

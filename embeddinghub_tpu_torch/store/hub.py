@@ -17,10 +17,15 @@ The on-disk format is the reference's, so a data directory written by
 either package opens in the other.  The engines: ``flat`` (the float32
 arena, the default), ``flat-bf16``, ``flat-int8`` and ``flat-int8x2`` (a
 ``FlatIndex`` of that ``storage_dtype``, with the quantization guard on)
-and ``hnsw`` (``index/hnsw.py``, built with the ``hnsw_*`` knobs of
-``utils/config.py``, as the reference's ``_make_index``).  The sharded
-engines of the reference raise ``NotImplementedError`` naming their ROADMAP
-item (multi-device).  The engine picks the index
+``hnsw`` (``index/hnsw.py``, built with the ``hnsw_*`` knobs of
+``utils/config.py``, as the reference's ``_make_index``), and the engines
+over a mesh of shards (``parallel/``): ``sharded``, ``sharded-int8`` and
+``sharded-int8x2`` (a ``ShardedFlatIndex`` of that storage) and
+``hnsw-sharded`` (a ``ShardedHNSWIndex`` with the same ``hnsw_*`` knobs).
+The mesh is the caller's ``mesh``, else every visible card for a CUDA
+device and the one device otherwise (``parallel/mesh.mesh_for``); with a
+mesh and no ``device`` the hub's device is the mesh's first.  A sharded
+snapshot reopens onto the hub's mesh.  The engine picks the index
 of new versions and of versions rebuilt from a WAL alone; a snapshot names
 its own index type.  The hnsw knobs come from the ``config`` the caller
 passes (``get_config()`` without one); ``hnsw_seed_probes > 0`` routes a
@@ -41,39 +46,33 @@ import torch
 from embeddinghub_tpu_torch.index.flat import FlatIndex
 from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
 from embeddinghub_tpu_torch.ops import distance as dist_ops
+from embeddinghub_tpu_torch.parallel.mesh import Mesh, mesh_for
+from embeddinghub_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+from embeddinghub_tpu_torch.parallel.sharded_hnsw import ShardedHNSWIndex
 from embeddinghub_tpu_torch.store.space import DEFAULT_VERSION, Space
 from embeddinghub_tpu_torch.utils.config import Config, get_config
 from embeddinghub_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from embeddinghub_tpu_torch.utils.device import resolve as resolve_device
-
-# engine -> the ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {
-    "sharded": "multi-device",
-    "sharded-int8": "multi-device",
-    "sharded-int8x2": "multi-device",
-    "hnsw-sharded": "multi-device",
-}
-
 
 class EmbeddingHub:
     def __init__(
         self,
         base_path: str | Path | None = None,
         engine: str = "flat",
-        device: torch.device | str = DEFAULT_DEVICE,
+        device: torch.device | str | None = None,
         config: Config | None = None,
+        mesh: Mesh | None = None,
     ):
-        if engine in _NOT_PORTED:
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet; see ROADMAP.md queue 1, "
-                f"{_NOT_PORTED[engine]}"
-            )
-        if engine not in ("flat", "hnsw", *self._QUANTIZED):
+        if engine not in ("flat", "hnsw", "hnsw-sharded", *self._QUANTIZED,
+                          *self._SHARDED):
             raise ValueError(f"unknown engine {engine!r}")
         self.config = config if config is not None else get_config()
         self.base_path = Path(base_path) if base_path is not None else None
         self.engine = engine
+        if device is None:
+            device = mesh.devices[0] if mesh is not None else DEFAULT_DEVICE
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_for(self.device)
         if self.device.type == "cuda":
             dist_ops.full_f32()
         self._spaces: dict[str, Space] = {}
@@ -95,17 +94,26 @@ class EmbeddingHub:
         "flat-int8": "int8",
         "flat-int8x2": "int8x2",
     }
+    _SHARDED = {"sharded": "float32", "sharded-int8": "int8", "sharded-int8x2": "int8x2"}
 
     def _make_index(self, dims: int, metric: str):
         """The index of a new version: ``None`` (the version's default
-        ``FlatIndex``), a quantized ``FlatIndex``, or an ``HNSWIndex`` from
-        the configuration."""
+        ``FlatIndex``), a quantized ``FlatIndex``, a ``ShardedFlatIndex`` or
+        ``ShardedHNSWIndex`` on the hub's mesh, or an ``HNSWIndex`` from the
+        configuration."""
         if self.engine == "flat":
             return None
         if self.engine in self._QUANTIZED:
             return FlatIndex(dims, metric=metric, storage_dtype=self._QUANTIZED[self.engine],
                              device=self.device)
+        if self.engine in self._SHARDED:
+            return ShardedFlatIndex(dims, metric=metric, mesh=self.mesh,
+                                    storage_dtype=self._SHARDED[self.engine])
         cfg = self.config
+        if self.engine == "hnsw-sharded":
+            return ShardedHNSWIndex(dims, metric=metric, mesh=self.mesh, m=cfg.hnsw_m,
+                                    ef_construction=cfg.hnsw_ef_construction,
+                                    ef_search=cfg.hnsw_ef_search)
         idx = HNSWIndex(dims, metric=metric, m=cfg.hnsw_m,
                         ef_construction=cfg.hnsw_ef_construction,
                         ef_search=cfg.hnsw_ef_search, device=self.device)
@@ -124,7 +132,7 @@ class EmbeddingHub:
             if name in self._spaces:
                 return self._spaces[name]
             space = Space(name, self._space_path(name), device=self.device,
-                          make_index=self._make_index)
+                          make_index=self._make_index, mesh=self.mesh)
             space.create_version(DEFAULT_VERSION, dims, metric,
                                  index=self._make_index(dims, metric))
             self._spaces[name] = space
@@ -187,4 +195,4 @@ class EmbeddingHub:
             # "path" goes stale when the data directory moves
             self._spaces[name] = Space.load(name, self._space_path(name),
                                             device=self.device,
-                                            make_index=self._make_index)
+                                            make_index=self._make_index, mesh=self.mesh)

@@ -19,7 +19,8 @@ WAL record format (little-endian):
 Replay applies runs of consecutive ``set`` records as one batched
 ``multiset`` (:func:`_replay_into`).  For a flat index the result is
 exactly that of applying them one by one, as the reference does.  A graph
-index takes each run whole: a run into an empty graph is the bulk build of
+index (and a sharded one, each of whose shards is a graph) takes each run
+whole: a run into an empty graph is the bulk build of
 the rows that were written, a run into a built graph goes in by waves.  A
 graph replayed so is not the graph that record-by-record replay would give
 (the reference's, whose graph is not its own build's either): the contract
@@ -39,6 +40,9 @@ import numpy as np
 
 from embeddinghub_tpu_torch.index.flat import FlatIndex
 from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
+from embeddinghub_tpu_torch.parallel.mesh import mesh_for
+from embeddinghub_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+from embeddinghub_tpu_torch.parallel.sharded_hnsw import ShardedHNSWIndex
 from embeddinghub_tpu_torch.store import errors
 from embeddinghub_tpu_torch.store.keymap import KeyMap
 from embeddinghub_tpu_torch.store.version import Version
@@ -51,12 +55,10 @@ _TAG_FREEZE = 3
 # set records applied per batched multiset during replay
 REPLAY_BATCH = 4096
 
-# snapshot index type -> the ROADMAP.md queue 1 item that ports it
-_NOT_PORTED = {
-    "ShardedFlatIndex": "multi-device",
-    "ShardedHNSWIndex": "multi-device",
-}
-
+# the snapshot index types, by the name a snapshot's meta.json gives
+_INDEX_TYPES = {cls.__name__: cls for cls in (FlatIndex, HNSWIndex, ShardedFlatIndex,
+                                              ShardedHNSWIndex)}
+_SHARDED = (ShardedFlatIndex, ShardedHNSWIndex)
 
 class VersionWal:
     """Append-only write log for one version.
@@ -155,15 +157,9 @@ class VersionWal:
 
 def _index_class(name: str):
     """The index class a snapshot's ``index_type`` names."""
-    if name == "FlatIndex":
-        return FlatIndex
-    if name == "HNSWIndex":
-        return HNSWIndex
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"snapshot index type {name!r} is not ported yet; see ROADMAP.md "
-            f"queue 1, {_NOT_PORTED[name]}")
-    raise ValueError(f"unknown snapshot index type {name!r}")
+    if name not in _INDEX_TYPES:
+        raise ValueError(f"unknown snapshot index type {name!r}")
+    return _INDEX_TYPES[name]
 
 
 def save_version(vdir: str | Path, version) -> None:
@@ -206,15 +202,19 @@ def save_version(vdir: str | Path, version) -> None:
 
 
 def load_version(vdir: str | Path, wal_path: str | Path | None = None,
-                 device=DEFAULT_DEVICE):
-    """Open a snapshot (copy-on-write mmaps of its arrays) on ``device``,
-    then replay the WAL at ``wal_path`` and keep appending to it."""
+                 device=DEFAULT_DEVICE, mesh=None):
+    """Open a snapshot (copy-on-write mmaps of its arrays) on ``device``, a
+    sharded one onto ``mesh`` (by default ``parallel/mesh.mesh_for(device)``;
+    the reference's reopens on its default mesh), then replay the WAL at
+    ``wal_path`` and keep appending to it."""
     vdir = Path(vdir)
     meta = json.loads((vdir / "meta.json").read_text())
     snap = vdir / meta.get("index_dir", "index")
     arrays = {p.stem: np.load(p, mmap_mode="c") for p in sorted(snap.glob("*.npy"))}
-    index = _index_class(meta["index_type"]).from_state(
-        meta["dims"], meta["metric"], arrays, device=device)
+    cls = _index_class(meta["index_type"])
+    where = ({"mesh": mesh if mesh is not None else mesh_for(device)}
+             if issubclass(cls, _SHARDED) else {"device": device})
+    index = cls.from_state(meta["dims"], meta["metric"], arrays, **where)
     version = Version(meta["space"], meta["name"], meta["dims"], meta["metric"],
                       index=index, device=device)
     version.keymap = KeyMap.from_state(meta["keymap"])
@@ -233,12 +233,14 @@ def _replay_into(version, wal_path) -> None:
     key takes its row at its first record and keeps its last vector, which
     is what record-by-record replay gives: ``multiset``'s own keep-last
     dedup would order rows by last appearance instead, so the run is
-    deduplicated here first.  A graph index takes each run whole, one
-    ``multiset`` (a bulk build into an empty graph, waves into a built one;
-    see the module docstring)."""
+    deduplicated here first.  A graph index (``HNSWIndex`` or
+    ``ShardedHNSWIndex``) takes each run whole, one ``multiset`` (a bulk
+    build into an empty graph, waves into a built one; see the module
+    docstring)."""
     run: dict[str, np.ndarray] = {}  # insertion order = first appearance
     n_run = 0
-    batch = None if isinstance(version.index, HNSWIndex) else REPLAY_BATCH
+    graph = isinstance(version.index, (HNSWIndex, ShardedHNSWIndex))
+    batch = None if graph else REPLAY_BATCH
 
     def flush():
         nonlocal n_run

@@ -4,8 +4,9 @@ The twin of ``embeddinghub_tpu/store/space.py``.  With a ``path`` a space
 is a directory with one subdirectory per version: its ``config.json``
 row (space, name, dims, metric), its WAL ``wal.bin`` and, once saved, its
 snapshot (``store/persistence.py``).  Every index is created or loaded on
-the space's ``device``; ``make_index(dims, metric)`` gives the index of a
-version rebuilt from its WAL alone (``None``: a ``FlatIndex``).
+the space's ``device`` (a sharded snapshot onto its ``mesh``);
+``make_index(dims, metric)`` gives the index of a version rebuilt from its
+WAL alone (``None``: a ``FlatIndex``).
 """
 
 from __future__ import annotations
@@ -27,10 +28,11 @@ DEFAULT_VERSION = "initial"
 
 class Space:
     def __init__(self, name: str, path: str | Path | None = None,
-                 device=DEFAULT_DEVICE, make_index=None):
+                 device=DEFAULT_DEVICE, make_index=None, mesh=None):
         self.name = name
         self.path = Path(path) if path is not None else None
         self.device = device
+        self.mesh = mesh
         self.make_index = make_index
         self._versions: dict[str, Version] = {}
 
@@ -70,13 +72,14 @@ class Space:
 
     @classmethod
     def load(cls, name: str, path: str | Path, device=DEFAULT_DEVICE,
-             make_index=None) -> "Space":
-        space = cls(name, path, device=device, make_index=make_index)
+             make_index=None, mesh=None) -> "Space":
+        space = cls(name, path, device=device, make_index=make_index, mesh=mesh)
         path = Path(path)
         if path.exists():
             for vdir in sorted(p for p in path.iterdir() if p.is_dir()):
                 if (vdir / "meta.json").exists():
-                    v = load_version(vdir, wal_path=vdir / "wal.bin", device=device)
+                    v = load_version(vdir, wal_path=vdir / "wal.bin", device=device,
+                                     mesh=mesh)
                     space._versions[v.name] = v
                 elif (vdir / "wal.bin").exists():
                     space._rebuild_from_wal(vdir)

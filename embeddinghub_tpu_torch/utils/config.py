@@ -36,7 +36,9 @@ class Config:
 
     # Engine knobs
     engine: str = "flat"                # "flat" | "flat-bf16" | "flat-int8" |
-                                        # "flat-int8x2" | "hnsw" (store/hub.py)
+                                        # "flat-int8x2" | "hnsw" | "sharded" |
+                                        # "sharded-int8" | "sharded-int8x2" |
+                                        # "hnsw-sharded" (store/hub.py)
     default_metric: str = "l2"          # "l2" | "cosine" | "ip"
     query_batch_window_ms: float = 2.0  # server-side batching window
     max_query_batch: int = 1024

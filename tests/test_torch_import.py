@@ -54,6 +54,9 @@ def _forbidden(name: str) -> bool:
     "embeddinghub_tpu_torch.service.proto",
     "embeddinghub_tpu_torch.utils.config, embeddinghub_tpu_torch.utils.channels, "
     "embeddinghub_tpu_torch.utils.device",
+    "embeddinghub_tpu_torch.parallel",
+    "embeddinghub_tpu_torch.parallel.mesh, embeddinghub_tpu_torch.parallel.sharded_flat, "
+    "embeddinghub_tpu_torch.parallel.sharded_hnsw, embeddinghub_tpu_torch.parallel.dryrun",
 ])
 def test_port_imports_no_jax(mods):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))

@@ -219,10 +219,16 @@ def test_hub_on_disk_semantics(tmp_path):
 
 
 def test_unported_snapshot_types_raise(tmp_path):
-    hub = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")
-    hub.create_space("a", D).default_version().set("x", _vecs(41, 1)[0])
+    """Every snapshot type of the reference reopens (a ShardedHNSWIndex
+    here, on the hub's one-device CPU mesh); an unknown one raises."""
+    hub = EmbeddingHub.load_or_create(tmp_path / "store", engine="hnsw-sharded", device="cpu")
+    x = _vecs(41, 40)
+    hub.create_space("a", D).default_version().multiset((f"k{j}", v) for j, v in enumerate(x))
     hub.save()
+    back = EmbeddingHub.load_or_create(tmp_path / "store", device="cpu").get_version("a")
+    assert type(back.index).__name__ == "ShardedHNSWIndex" and back.index.n_shards == 1
+    assert back.nearest(1, vector=x[7]) == ["k7"]
     meta_path = tmp_path / "store" / "a" / "initial" / "meta.json"
-    meta_path.write_text(meta_path.read_text().replace('"FlatIndex"', '"ShardedHNSWIndex"'))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    meta_path.write_text(meta_path.read_text().replace('"ShardedHNSWIndex"', '"NopeIndex"'))
+    with pytest.raises(ValueError, match="NopeIndex"):
         EmbeddingHub.load_or_create(tmp_path / "store", device="cpu")

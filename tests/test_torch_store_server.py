@@ -12,6 +12,7 @@ import socket
 import grpc
 import numpy as np
 import pytest
+import torch
 
 from embeddinghub_tpu.sdk.client import EmbeddingHubClient
 from embeddinghub_tpu.service import server as jax_server
@@ -109,9 +110,19 @@ def test_hub_semantics():
     assert sorted(hub.spaces()) == ["a", "b"]
     hub.delete_space("a")
     assert hub.get_space("a") is None and hub.get_version("a") is None
-    for engine in ("hnsw-sharded", "sharded"):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            EmbeddingHub.in_memory(engine=engine)
+    # the engines over a mesh of shards: on a CPU hub its one device
+    for engine, kind, storage in (("sharded", "ShardedFlatIndex", "float32"),
+                                  ("sharded-int8", "ShardedFlatIndex", "int8"),
+                                  ("sharded-int8x2", "ShardedFlatIndex", "int8x2"),
+                                  ("hnsw-sharded", "ShardedHNSWIndex", None)):
+        sharded = EmbeddingHub.in_memory(engine=engine, device="cpu")
+        index = sharded.create_space("s", D).default_version().index
+        assert type(index).__name__ == kind and index.mesh.size == 1
+        assert index.mesh.devices[0].type == "cpu" and sharded.mesh is index.mesh
+        assert getattr(index, "storage_dtype", None) == storage
+        if not torch.cuda.is_available():  # "cuda" by default: no card, no store
+            with pytest.raises(RuntimeError, match="CUDA"):
+                EmbeddingHub.in_memory(engine=engine)
     quant = EmbeddingHub.in_memory(engine="flat-int8", device="cpu").create_space("q", D)
     index = quant.default_version().index
     assert type(index).__name__ == "FlatIndex" and index.storage_dtype == "int8"
