@@ -620,8 +620,13 @@ def phase_kernels(torch, x_host, report):
             bound_ms, bound_by, unit, fma_ms = bound(name, b, rows, cap, DIMS, k,
                                                      exact is not False)
             tflops = 2 * b * rows * DIMS / (ms * 1e-3) / 1e12
+            # exact_topk takes K1's large-k route at some shapes (k1_route)
+            via = ("fused_topk_search_large_k" if name == "fused_topk_search"
+                   and F.k1_route(k, b, cap, F.k1_tile(b, DIMS, exact)) == "large_k"
+                   else name)
             print(f"[kernels] {name} {metric} B={b} cap={cap} rows={rows} k={k}"
-                  f"{'' if exact is None else f' exact={exact}'}: "
+                  f"{'' if exact is None else f' exact={exact}'}"
+                  f"{'' if via == name else f' via={via}'}: "
                   f"max_abs_err={err:.3g}{f64} tie_swaps={swaps} "
                   f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
                   f"bound_ms={bound_ms:.3f} ({bound_by}: {unit}; f32 FMA "
@@ -632,7 +637,7 @@ def phase_kernels(torch, x_host, report):
             label = SUMMARY.get((metric, b, k, exact, cap))
             if label is not None:
                 report[label] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    via=via, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, bound_unit=unit, fma_bound_ms=fma_ms,
                     library_ms=library_ms,
                     shape=f"{metric} B={b} k={k} exact={exact} cap={cap} rows={rows}")
@@ -1623,11 +1628,13 @@ def phase_cluster(torch, launches, base):
     check(index.exact_build_max < BIG_ROWS <= index.cluster_build_max,
           "4M rows do not take the cluster-routed build")
     keys = [f"b{j}" for j in range(BIG_ROWS)]
-    before = launches["fused_topk_search"]
+    before = dict(launches)
     t0 = time.perf_counter()
     version.multiset(zip(keys, train))
     ingest_s = time.perf_counter() - t0
-    built = launches["fused_topk_search"] - before
+    # the routed pools take K1's large-k route (fused_topk.k1_route)
+    routed = launches["fused_topk_search_large_k"] - before["fused_topk_search_large_k"]
+    built = launches["fused_topk_search"] - before["fused_topk_search"] + routed
     check(built > 0, "the cluster-routed build did not launch K1")
     secs = index.build_seconds
     check("routed_pools" in secs and "boundary_repair" in secs,
@@ -1644,7 +1651,11 @@ def phase_cluster(torch, launches, base):
     print(f"[cluster] plan: {index._cluster_stats}; {route['cent'].shape[0]} clusters "
           f"of {int(sizes.min())} to {int(sizes.max())} rows; boundary repair of "
           f"{index.boundary_rows} rows", flush=True)
+    # (so do pools of at most 32 queries at k > 32: small upper layers)
+    check(routed >= blocks,
+          f"{routed} launches of K1's large-k route for {blocks} routed pools")
     print(f"[cluster] K1 launched {built} times in the build: {blocks} routed pools "
+          f"by its large-k route "
           f"(B <= 4096, k={ROUTED_K}, {ROUTED_S} gathered rows; {tails.size} "
           f"remainder blocks of {int(tails.min(initial=4096))} to "
           f"{int(tails.max(initial=0))} rows), {repairs} repair "
@@ -2247,8 +2258,9 @@ def summary_entries(report, paths) -> list:
     """An entry per summary case.  launches: the count of the path the case
     belongs to (CASE_PATH: the main path's; the graph path's for the
     build's pool shapes, the writes path's for the waves', the quantized
-    path's for the pools); paths: each path's own.  A main entry's
-    max_abs_err is its kernel's largest over every case.  The int8 pools
+    path's for the pools) of the wrapper that ran the case (``via``: K1's
+    large-k route where ``exact_topk`` takes it); paths: each path's own.
+    A main entry's max_abs_err is its kernel's largest over every case.  The int8 pools
     replace the reference's XLA scans, which their case names; K2's bf16
     scan, a pool's too, the Pallas K2."""
     entries = []
@@ -2259,12 +2271,13 @@ def summary_entries(report, paths) -> list:
         numbers = dict(report[(name, label)])
         if label == "main":
             numbers["max_abs_err"] = report[name]["max_abs_err"]
+        via = numbers.get("via", name)
         entries.append({
             "name": name, "case": label, "route": "cuda", "source": SOURCES[name],
             "replaces": (numbers["replaces"] if name == "fused_topk_search_v2_int8"
                          else REPLACES[name]),
-            "launches": paths[path][name],
-            "paths": {p: counts.get(name, 0) for p, counts in paths.items()},
+            "via": via, "launches": paths[path][via],
+            "paths": {p: counts.get(via, 0) for p, counts in paths.items()},
             **{key: numbers[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_unit",
                 "fma_bound_ms", "library_ms", "shape")}})
@@ -2311,7 +2324,7 @@ def main() -> int:
              "offline": ("fused_topk_search_v2",),
              "graph": ("fused_topk_search",),
              "writes": ("fused_topk_search",),
-             "cluster": ("fused_topk_search",),
+             "cluster": ("fused_topk_search", "fused_topk_search_large_k"),
              "quantized": ("fused_topk_search_v2_int8", "fused_topk_search_v2"),
              "sharded": ("fused_topk_search", "fused_topk_search_v2_int8"),
              "crash": ("fused_topk_search",)}

@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas kernel fused_topk_search (_kernel, exact) of
 // embeddinghub_tpu/ops/pallas_topk.py:124 -> ehtorch_fused_topk (running
-// lists, k <= 1024) and ehtorch_large_k (any k up to the capacity).  (K2,
+// lists, k <= 512) and ehtorch_large_k (any k up to the capacity).  (K2,
 // fused_topk_search_v2, is k2_scan.cu.)
 //
 // It computes, for every query b, the k smallest scores over the live rows
@@ -60,21 +60,40 @@
 //     ring of its own, so a score is one FMA and a dead row never wins.  A
 //     tiled map needs rows a multiple of 16 bytes apart: the index keeps
 //     its arena in rows padded to 4 floats (ops/fused_topk.py arena_f32).
-//  4. The epilogue on the accumulators (SCAN).  A thread compares its
-//     scores, four at a time, with its queries' current k-th best (thr, one
+//  4. The epilogue on the accumulators (SCAN, LONG).  A thread compares
+//     its scores, four at a time, with its queries' thresholds (thr, one
 //     float a query in shared memory).  What passes goes as (score, row) to
 //     the query's queue in shared memory (push_group, out of line); one
 //     barrier with an OR per tile tells the block whether a queue was full,
-//     and only then the consumer warps drain every queue into the running
-//     lists (a warp per query; a list of up to 32 in registers meanwhile;
-//     the lists in shared memory when they fit, else in the [k] slot of the
-//     partial output) and the threads try again.  A last drain ends the
-//     scan.  After the first tiles almost nothing passes: the epilogue is
-//     an FMA and a minimum per score and one barrier per tile.  Rows of a
-//     tile do not arrive in order, so a candidate replaces the worst entry
-//     when its (score, row) key is smaller: lower row first on ties.  One
-//     accumulator per warpgroup: with three passes the epilogue is a tenth
-//     of a tile's products.
+//     and only then the consumer warps drain queues into the running lists
+//     and the threads try again.  A last drain ends the scan.  After the
+//     first tiles little passes: the epilogue is an FMA and a minimum per
+//     score and one barrier per tile.  One accumulator per warpgroup: with
+//     three passes the epilogue is a tenth of a tile's products.  Rows of a
+//     tile do not arrive in order, so lists keep (score, row) keys: lower
+//     row first on ties, whatever the order candidates come in.
+//     - k <= 32 (SCAN): a warp per query, its list in registers (an entry
+//       a lane) while the queue drains into it one candidate at a time;
+//       the lists in shared memory when they fit, else in the [k] slot of
+//       the partial output.
+//     - 32 < k <= 512 (LONG, the graph engine's pools): the lists live in
+//       the partial output, each sorted by key.  An insert into an unsorted
+//       list in device memory cost a re-scan of the list (the 1M-row graph
+//       pool took 33.6 ms, 18.7 of them in drains, on an H100), so a drain
+//       now reads a list whole and coalesced (up to 16 keys a lane),
+//       sorts 32 or 128 queued candidates in registers (warp bitonic sort),
+//       merges them in one bitonic merge against the list's reversed tail
+//       and writes the list back: O(k log k) a drain, not O(k) a candidate.
+//       The queues are deeper (up to 128 slots, a ring of 4 boxes: deeper
+//       rings measured slower), a queue drains once a quarter full, and any
+//       free warp takes the next query.  The k-th best of one split bounds
+//       the query's k best from above, but weakly (it has seen a split's
+//       rows only), so the splits of a query share a bound in device memory:
+//       each publishes its ceil(k / splits)-th best, and the largest of
+//       those is a bound too (k rows lie at or below it) that falls as the
+//       union's k-th best does.  A list's threshold is the lesser of its
+//       own k-th best and that bound, which took the candidates a 1M-row
+//       pool's list merges from 2,086 to 1,128.
 //  5. STORE, the first pass of the large-k route, writes the biased scores
 //     instead: staged per tile as [N queries][128 rows] in shared memory,
 //     then 512 contiguous bytes a query to the [B, row_len] buffer.
@@ -83,9 +102,13 @@
 //     query's splits * k partial entries by (score, id) and applies the
 //     epilogue of pallas_topk.py:187-192 (emit, topk_common.cuh).
 //
-// K1 past k = 1024 (ehtorch_large_k).  The running lists cost O(k) per
-// insert and the merge sorts splits*k entries in shared memory, so a large
-// k takes another route, with no bound on k but the arena's capacity.  The
+// K1 past k = 512, and over few rows a k (ehtorch_large_k; the wrapper's
+// k1_route picks it from the shape).  Lists past 16 keys a lane would not
+// fit the registers beside the accumulators, and the merge sorts splits*k
+// entries in shared memory, so a large k takes another route, with no
+// bound on k but the arena's capacity; so does a pool whose list is a
+// large share of its rows, where the lists lose to it (the graph build's
+// routed pool, k = 257 over 32,768 rows; PERF.md has the times).  The
 // wrapper takes the queries in groups whose [B, cap] scores fit a bounded
 // buffer, which the scan (MODE STORE) fills.  Every (score, row) is one
 // 64-bit key, the order of the merge's sort, and the k-th smallest key per
@@ -125,14 +148,18 @@ constexpr int MAX_STAGES = 8;                // ring depth at most
 constexpr int MIN_STAGES = 4;                // else the query tile narrows
 constexpr int MIN_QUEUE = 8;                 // queue slots per query at least
 constexpr int MAX_QUEUE = 32;
+constexpr int LONG_QUEUE = 128;              // queue slots per query at most, long lists
+constexpr int LONG_STAGES = 4;               // ring depth at most, long lists: the queues first
+constexpr int MAX_LONG_K = 512;              // 16 keys a lane; larger k: the large-k route
 constexpr int ST_STRIDE = TILE + 4;          // STORE staging row: conflict-free, 16-byte rows
 constexpr int MAX_NQ = 128;
 constexpr int CHAIN = 4;                     // boxes the tensor cores sum before a flush
 constexpr int BAD_TILE = 9998;
 constexpr int DRAIN = 1;                     // named barrier of the consumers
 constexpr float ROOM = 3.4028234e38f;        // the largest finite score: a list with room takes any
+constexpr unsigned ROOM_BOUND = 0xff7fffffu;  // pack(ROOM, id) >> 32
 
-enum Mode { SCAN = 0, STORE = 1 };
+enum Mode { SCAN = 0, STORE = 1, LONG = 2 };  // LONG: SCAN for 32 < k <= MAX_LONG_K
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -156,9 +183,9 @@ struct Layout {
   int nq;      // queries per block (N)
   int split;   // 1: q_small follows q_big (exact); 0: one pass (bf16 operands)
   int stages;  // ring depth
-  int qd;      // queue slots per query (SCAN)
+  int qd;      // queue slots per query (SCAN, LONG)
   int store;
-  int k;       // SCAN: the lists' length
+  int k;       // SCAN, LONG: the lists' length
   int lists;   // SCAN: the running lists sit in shared memory (else in pd/pi)
   __host__ __device__ int whole() const { return nb + (nb & 1); }
   __host__ __device__ int q_bytes() const { return qb * nq * 128; }
@@ -170,7 +197,7 @@ struct Layout {
   }
   __host__ __device__ int list_off() const { return work_off() + work_bytes(); }
   __host__ __device__ int state_off() const { return list_off() + (lists ? nq * k * 8 : 0); }
-  __host__ __device__ int bar_off() const { return state_off() + 5 * nq * 4; }
+  __host__ __device__ int bar_off() const { return state_off() + 2 * nq * 4 + 8; }
   __host__ __device__ int bytes() const {
     return bar_off() + (2 * stages + 2 * BIAS_STAGES) * 8 + 1024;  // + alignment slack
   }
@@ -183,16 +210,19 @@ int ring_depth(Layout L) {
   return room < 0 ? 0 : min(MAX_STAGES, room / (STAGE_BYTES + 16));
 }
 
-// k = 0 sizes the block without lists (pick_nq).  The lists go to shared
-// memory when a ring of MIN_STAGES boxes still fits beside them (k <= 16 at
-// N = 128 and D = 128; more at narrower tiles): an insert there costs a
-// tenth of one in device memory.  What is left widens the queues.
-Layout scan_layout(int D, int nq, int bf16, int store, int k) {
+// k = 0 sizes the block without lists (pick_nq).  k <= 32 (SCAN): the
+// lists go to shared memory when a ring of MIN_STAGES boxes still fits
+// beside them (k <= 16 at N = 128 and D = 128; more at narrower tiles).
+// k > 32 (LONG): the lists stay in pd/pi.  The ring takes what is left, up
+// to MAX_STAGES boxes (LONG_STAGES for long lists: a drain costs a pass
+// over the whole list, so their queues come first), then the queues grow
+// to MAX_QUEUE (SCAN) or LONG_QUEUE slots.
+Layout scan_layout(int D, int nq, int bf16, int mode, int k) {
   Layout L{};
   L.nb = (D + BOXC - 1) / BOXC;
   L.nq = nq;
   L.split = !bf16;
-  L.store = store;
+  L.store = mode == STORE;
   L.k = k;
   L.qd = MIN_QUEUE;
   L.qb = L.whole();
@@ -203,13 +233,15 @@ Layout scan_layout(int D, int nq, int bf16, int store, int k) {
     const int room = SMEM_LIMIT - L.bytes() - MIN_STAGES * (STAGE_BYTES + 16);
     L.qb = room / (nq * 128 * (L.split ? 2 : 1)) / CHAIN * CHAIN;
   }
-  if (!store && k > 0) {
+  if (mode == SCAN && k > 0) {
     L.lists = 1;
     if (ring_depth(L) < MIN_STAGES) L.lists = 0;
   }
   L.stages = ring_depth(L);
-  if (!store && L.stages > 0)
-    L.qd = min(MAX_QUEUE, MIN_QUEUE + (SMEM_LIMIT - L.bytes()) / (nq * 8));
+  if (mode == LONG) L.stages = min(L.stages, LONG_STAGES);
+  if (mode != STORE && L.stages > 0)
+    L.qd = min(mode == LONG ? LONG_QUEUE : MAX_QUEUE,
+               MIN_QUEUE + (SMEM_LIMIT - L.bytes()) / (nq * 8));
   return L;
 }
 
@@ -221,7 +253,8 @@ int pick_nq(int B, int D, int bf16, int store) {
   const int most = store || D > CHAIN * BOXC ? 64 : MAX_NQ;
   int nq = 8;
   while (nq < most && nq < B) nq *= 2;
-  while (nq > 8 && scan_layout(D, nq, bf16, store, 0).stages < MIN_STAGES) nq /= 2;
+  while (nq > 8 && scan_layout(D, nq, bf16, store ? STORE : SCAN, 0).stages < MIN_STAGES)
+    nq /= 2;
   return nq;
 }
 
@@ -250,17 +283,17 @@ __device__ __forceinline__ bool consumers_any(bool mine) {
 
 // The per-query state of a block's running lists, in shared memory.  A list
 // entry is a (score, row) pair, ordered as its packed key; an empty slot is
-// (+inf, -1), the largest key, so the worst entry is an empty slot while
-// there is one.
+// (+inf, -1), the largest key but the padding's.
 struct Lists {
-  unsigned long long* worst;  // [N] the worst entry's key (lists longer than 32)
-  int* worst_p;               // [N] ... and its slot
   float* thr;   // [N] the score a candidate must not exceed: the k-th best, ROOM
                 //     while the list has room, -inf for a query past B
   int* qcnt;    // [N] candidates queued since the last drain (may pass qd)
+  int* next;    // LONG: the next query a warp takes in a drain
   float* qs;    // [N][qd] queued scores
   int* qr;      // [N][qd] ... and rows
   int qd;
+  unsigned* bound;  // LONG: [B][splits] each split's m-th best so far, as the
+                    // high half of its key (shared_bound)
 };
 
 // The largest of the lanes' keys and the first lane that holds it.
@@ -275,82 +308,186 @@ __device__ __forceinline__ void warp_max(unsigned long long key, unsigned long l
   at = __ffs(__ballot_sync(FULL, key == m)) - 1;
 }
 
-// The worst entry of a list of k > 32 entries in memory: its key and slot
-// (the highest slot among equal keys, so every lane gets the same answer).
-__device__ __forceinline__ void list_worst(const float* ld, const int* li, int k,
-                                           int lane, unsigned long long& worst,
-                                           int& wp) {
-  unsigned long long bk = 0;
-  int bp = -1;
-  for (int j = lane; j < k; j += 32) {
-    const unsigned long long key = pack(ld[j], li[j]);
-    if (key >= bk) {
-      bk = key;
-      bp = j;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    const unsigned long long ok = __shfl_xor_sync(FULL, bk, off);
-    const int op = __shfl_xor_sync(FULL, bp, off);
-    if (ok > bk || (ok == bk && op > bp)) {
-      bk = ok;
-      bp = op;
-    }
-  }
-  worst = bk;
-  wp = bp;
-}
-
-// One warp empties query qq's queue into its list ld/li [k]: a candidate
-// whose key is smaller than the worst entry's replaces it.  A list of up to
-// 32 entries is held in registers meanwhile, an entry a lane.  A longer
-// list stays in memory: lane 0 writes, and __syncwarp orders its stores
-// before the other lanes' reads.
+// MODE SCAN (k <= 32): one warp empties query qq's queue into its list
+// ld/li [k], held in registers meanwhile, an entry a lane: a candidate
+// whose key is smaller than the worst entry's replaces it.
 __device__ __forceinline__ void drain_query(const Lists& s, int qq, float* ld,
                                             int* li, int k, int lane) {
   const int cnt = min(s.qcnt[qq], s.qd);
   if (cnt == 0) return;
   unsigned long long worst;
-  if (k <= 32) {
-    unsigned long long key = lane < k ? pack(ld[lane], li[lane]) : 0ull;
-    int at;
-    warp_max(key, worst, at);
-    for (int e = 0; e < cnt; ++e) {
-      const unsigned long long c = pack(s.qs[qq * s.qd + e], s.qr[qq * s.qd + e]);
-      if (c < worst) {
-        if (lane == at) key = c;
-        warp_max(key, worst, at);
-      }
+  unsigned long long key = lane < k ? pack(ld[lane], li[lane]) : 0ull;
+  int at;
+  warp_max(key, worst, at);
+  for (int e = 0; e < cnt; ++e) {
+    const unsigned long long c = pack(s.qs[qq * s.qd + e], s.qr[qq * s.qd + e]);
+    if (c < worst) {
+      if (lane == at) key = c;
+      warp_max(key, worst, at);
     }
-    if (lane < k) {
-      ld[lane] = unpack_score(key);
-      li[lane] = (int)(unsigned)key;
-    }
-  } else {
-    worst = s.worst[qq];
-    int wp = s.worst_p[qq];
-    for (int e = 0; e < cnt; ++e) {
-      const float cv = s.qs[qq * s.qd + e];
-      const int row = s.qr[qq * s.qd + e];
-      if (pack(cv, row) < worst) {
-        __syncwarp();
-        if (lane == 0) {
-          ld[wp] = cv;
-          li[wp] = row;
-        }
-        __syncwarp();
-        list_worst(ld, li, k, lane, worst, wp);
-      }
-    }
-    if (lane == 0) {
-      s.worst[qq] = worst;
-      s.worst_p[qq] = wp;
-    }
+  }
+  if (lane < k) {
+    ld[lane] = unpack_score(key);
+    li[lane] = (int)(unsigned)key;
   }
   __syncwarp();
   if (lane == 0) {
     s.thr[qq] = fminf(unpack_score(worst), ROOM);
+    s.qcnt[qq] = 0;
+  }
+}
+
+// Keys held striped across a warp: element m * 32 + lane of a sequence in
+// register m of that lane.
+__device__ __forceinline__ unsigned long long kmin(unsigned long long a, unsigned long long b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ unsigned long long kmax(unsigned long long a, unsigned long long b) {
+  return a < b ? b : a;
+}
+
+// Ascending bitonic sort of the warp's 32 * M striped keys.
+template <int M>
+__device__ __forceinline__ void warp_sort(unsigned long long (&c)[M], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * M; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {  // pairs within a lane: registers m and m + stride / 32
+        const int ms = stride >> 5;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          if (m & ms) continue;
+          const bool up = ((m << 5) & size) == 0;
+          const unsigned long long a = c[m], b = c[m | ms];
+          c[m] = up ? kmin(a, b) : kmax(a, b);
+          c[m | ms] = up ? kmax(a, b) : kmin(a, b);
+        }
+      } else {  // pairs across lanes lane, lane ^ stride
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const unsigned long long o = __shfl_xor_sync(FULL, c[m], stride);
+          const bool up = (((m << 5) | lane) & size) == 0;
+          c[m] = (((lane & stride) == 0) == up) ? kmin(c[m], o) : kmax(c[m], o);
+        }
+      }
+    }
+  }
+}
+
+// Ascending bitonic merge of the warp's 32 * E striped keys, a bitonic
+// sequence.
+template <int E>
+__device__ __forceinline__ void warp_merge(unsigned long long (&a)[E], int lane) {
+#pragma unroll
+  for (int js = E >> 1; js > 0; js >>= 1)
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      if (j & js) continue;
+      const unsigned long long lo = kmin(a[j], a[j | js]), hi = kmax(a[j], a[j | js]);
+      a[j] = lo;
+      a[j | js] = hi;
+    }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1)
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const unsigned long long o = __shfl_xor_sync(FULL, a[j], stride);
+      a[j] = (lane & stride) ? kmax(a[j], o) : kmin(a[j], o);
+    }
+}
+
+// One batch of the warp's long-list drain: the queue's candidates p0 ..
+// p0 + 32 M - 1 (padding past cnt) sorted, set against the tail of the
+// sorted list a (32 E keys) reversed, the smaller of each pair kept (a
+// bitonic sequence that holds the 32 E smallest of both), and merged.
+template <int E, int M>
+__device__ __forceinline__ void merge_batch(unsigned long long (&a)[E], const float* qs,
+                                            const int* qr, int p0, int cnt, int lane) {
+  unsigned long long c[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int p = p0 + (m << 5) + lane;
+    c[m] = p < cnt ? pack(qs[p], qr[p]) : ~0ull;
+  }
+  warp_sort<M>(c, lane);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    a[E - 1 - m] = kmin(a[E - 1 - m], __shfl_xor_sync(FULL, c[m], 31));
+  warp_merge<E>(a, lane);
+}
+
+// The bound a split may prune query q's candidates with, from what every
+// split of the query has published (bound [B][splits]: the high half of
+// the key of each split's m-th best, m = ceil(k / splits)): the largest.
+// Every split holds m rows at or below its own, so k rows lie at or below
+// the largest, and so does the query's k-th best.  ROOM until every split
+// has m rows.
+__device__ __forceinline__ float shared_bound(const unsigned* bound, int q, int lane) {
+  const int splits = gridDim.y;
+  unsigned v = 0;
+  for (int sp = lane; sp < splits; sp += 32) v = max(v, __ldcg(bound + (size_t)q * splits + sp));
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v = max(v, __shfl_xor_sync(FULL, v, off));
+  return unpack_score((unsigned long long)v << 32);
+}
+
+// MODE LONG (32 < k <= 512): one warp merges query qq's queue into its
+// sorted list ld/li [k] (ascending by key) when its queue holds at least
+// `least` candidates.  The list comes in whole, coalesced, as 32 * E keys
+// (E = next_pow2(k) / 32; padding past k), the queue 32 candidates at a
+// time, or 128 for lists of 129 to 256 (merge_batch); the first k go back.
+// The threshold is the lesser of the list's k-th score and the splits'
+// shared bound (shared_bound; this split publishes its m-th best), which
+// falls with all the rows the query's splits have seen, not only this
+// split's: a split prunes as if it scanned them all.  A query that is not
+// drained takes the bound the splits have reached.
+template <int E>
+__device__ __forceinline__ void drain_long(const Lists& s, int qq, int q, float* ld,
+                                           int* li, int k, int lane, int least) {
+  const int cnt = min(s.qcnt[qq], s.qd);
+  if (cnt < least) {
+    const float shared = shared_bound(s.bound, q, lane);
+    if (lane == 0) s.thr[qq] = fminf(s.thr[qq], shared);
+    return;
+  }
+  unsigned long long a[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int i = (j << 5) | lane;
+    a[j] = i < k ? pack(ld[i], li[i]) : ~0ull;
+  }
+  const float* qs = s.qs + qq * s.qd;
+  const int* qr = s.qr + qq * s.qd;
+  for (int p0 = 0; p0 < cnt;) {
+    if (E == 8 && cnt - p0 > 64) {  // the graph pools' lists (k = 129 .. 256)
+      merge_batch<E, E == 8 ? 4 : 1>(a, qs, qr, p0, cnt, lane);
+      p0 += 128;
+    } else {
+      merge_batch<E, 1>(a, qs, qr, p0, cnt, lane);
+      p0 += 32;
+    }
+  }
+  const int splits = gridDim.y;
+  const int m = (k + splits - 1) / splits;
+  unsigned long long kth = a[0], mth = a[0];
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int i = (j << 5) | lane;
+    if (i < k) {
+      ld[i] = unpack_score(a[j]);
+      li[i] = (int)(unsigned)a[j];
+    }
+    if (j == (k - 1) >> 5) kth = a[j];
+    if (j == (m - 1) >> 5) mth = a[j];
+  }
+  kth = __shfl_sync(FULL, kth, (k - 1) & 31);
+  mth = __shfl_sync(FULL, mth, (m - 1) & 31);
+  if (lane == 0) s.bound[(size_t)q * splits + blockIdx.y] = (unsigned)(mth >> 32);
+  __syncwarp();
+  const float shared = shared_bound(s.bound, q, lane);
+  if (lane == 0) {
+    s.thr[qq] = fminf(fminf(unpack_score(kth), shared), ROOM);
     s.qcnt[qq] = 0;
   }
 }
@@ -388,7 +525,8 @@ __device__ __noinline__ unsigned push_group(const Lists s, float thx, float thy,
   return full;
 }
 
-// MODE SCAN is K1: pd/pi [B, splits, k] take each block's running lists.
+// MODE SCAN and LONG are K1: pd/pi [B, splits, k] take each block's running
+// lists (LONG: sorted by key, from the first drain on).
 // MODE STORE, the first pass of the large-k route, leaves them alone and
 // writes every score to scores [B][row_len], row_len = n_tiles * 128 (+inf
 // for dead rows and rows past cap).
@@ -403,9 +541,9 @@ template <int N, bool BF16, int MODE, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, 1)
 k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
                const __grid_constant__ CUtensorMap bmap,
-               const float* __restrict__ q, float* pd, int* pi, float* scores,
-               int B, int D, int k, int n_tiles, int tiles_per_split, int l2,
-               int row_len, Layout L) {
+               const float* __restrict__ q, float* pd, int* pi, unsigned* bound,
+               float* scores, int B, int D, int k, int n_tiles, int tiles_per_split,
+               int l2, int row_len, Layout L) {
   constexpr int NA = N / 2;  // accumulators a thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -415,13 +553,13 @@ k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
   uint64_t* tfull = empty + L.stages;
   uint64_t* tempty = tfull + BIAS_STAGES;
   Lists s;
-  s.worst = reinterpret_cast<unsigned long long*>(smem + L.state_off());
-  s.worst_p = reinterpret_cast<int*>(s.worst + N);
-  s.thr = reinterpret_cast<float*>(s.worst_p + N);
+  s.thr = reinterpret_cast<float*>(smem + L.state_off());
   s.qcnt = reinterpret_cast<int*>(s.thr + N);
+  s.next = s.qcnt + N;
   s.qd = L.qd;
   s.qs = reinterpret_cast<float*>(smem + L.work_off());
   s.qr = reinterpret_cast<int*>(s.qs + N * L.qd);
+  s.bound = bound;
   float* staged = reinterpret_cast<float*>(smem + L.work_off());  // STORE
   float* list_v = reinterpret_cast<float*>(smem + L.list_off());  // [N][k], when L.lists
   int* list_i = reinterpret_cast<int*>(list_v + N * k);
@@ -472,7 +610,7 @@ k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   };
   if constexpr (!CHUNKED) load_queries(0, tid, THREADS);  // once for the whole scan
-  if constexpr (MODE == SCAN) {
+  if constexpr (MODE != STORE) {
     // Every list starts as k empty slots, (+inf, -1).
     for (int e = tid; e < N * k; e += THREADS) {
       const int n = e / k;
@@ -487,10 +625,9 @@ k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     for (int n = tid; n < N; n += THREADS) {
       s.thr[n] = q0 + n < B ? ROOM : -INF;
-      s.worst[n] = pack(INF, -1);  // any slot: all are empty
-      s.worst_p[n] = 0;
       s.qcnt[n] = 0;
     }
+    if (tid == 0) *s.next = 0;
   }
   __syncthreads();
 
@@ -534,14 +671,41 @@ k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
   const uint8_t* ring = smem + L.ring_off();
   int st = 0, ph = 0, ts = 0, tph = 0;
 
-  // The drain of every queue into its list, by the consumers' 8 warps.
-  auto drain_all = [&]() {
-    for (int qq = warp8; qq < N && q0 + qq < B; qq += CONSUMER_WARPS) {
-      const size_t base = ((size_t)(q0 + qq) * splits + split) * k;
-      drain_query(s, qq, L.lists ? list_v + qq * k : pd + base,
-                  L.lists ? list_i + qq * k : pi + base, k, lane);
+  // The drain of every queue that holds at least `least` candidates into
+  // its list, by the consumers' 8 warps: a query a warp (SCAN: the same
+  // warp for the whole scan; LONG: the next query any warp is free for,
+  // since a long drain costs a pass over the list; the barrier after a
+  // drain orders the lists' stores before the next drain's loads).
+  const int e_long = max(64, 1 << (32 - __clz(max(k - 1, 1)))) >> 5;  // LONG: keys a lane
+  auto drain_all = [&](int least) {
+    if constexpr (MODE == LONG) {
+      const int n = min(N, B - q0);
+      for (;;) {
+        int qq = 0;
+        if (lane == 0) qq = atomicAdd(s.next, 1);
+        qq = __shfl_sync(FULL, qq, 0);
+        if (qq >= n) break;
+        const size_t base = ((size_t)(q0 + qq) * splits + split) * k;
+        float* ld = pd + base;
+        int* li = pi + base;
+        switch (e_long) {
+          case 2: drain_long<2>(s, qq, q0 + qq, ld, li, k, lane, least); break;
+          case 4: drain_long<4>(s, qq, q0 + qq, ld, li, k, lane, least); break;
+          case 8: drain_long<8>(s, qq, q0 + qq, ld, li, k, lane, least); break;
+          default: drain_long<16>(s, qq, q0 + qq, ld, li, k, lane, least); break;
+        }
+      }
+    } else {
+      for (int qq = warp8; qq < N && q0 + qq < B; qq += CONSUMER_WARPS) {
+        const size_t base = ((size_t)(q0 + qq) * splits + split) * k;
+        drain_query(s, qq, L.lists ? list_v + qq * k : pd + base,
+                    L.lists ? list_i + qq * k : pi + base, k, lane);
+      }
     }
   };
+  // While scanning, a long list takes its queue when a quarter full: a
+  // drain costs a pass over the list, and the full queues must go.
+  const int least = MODE == LONG ? (L.qd + 3) / 4 : 1;
 
   // acc: the tensor cores' sums; sum: the chains before the last, for rows
   // wider than one chain (WIDE: every tile but the widest, which only
@@ -695,8 +859,9 @@ k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
       // again what it still holds, against the thresholds the drain has
       // lowered.
       while (consumers_any(failed != 0)) {
-        drain_all();
+        drain_all(least);
         named_sync(DRAIN, CONSUMERS);
+        if (MODE == LONG && tid == 0) *s.next = 0;  // before the next drain's barrier
         if (failed != 0) {
 #pragma unroll
           for (int jj = 0; jj < NA / 4; ++jj) {
@@ -716,9 +881,9 @@ k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
       }
     }
   }
-  if constexpr (MODE == SCAN) {
+  if constexpr (MODE != STORE) {
     named_sync(DRAIN, CONSUMERS);  // every candidate is queued
-    drain_all();
+    drain_all(1);
     if (L.lists) {
       named_sync(DRAIN, CONSUMERS);
       for (int e = tid; e < N * k; e += CONSUMERS) {
@@ -734,6 +899,11 @@ k1_scan_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ------------------------------------------------------------ merge pass
+
+__global__ void fill_kernel(unsigned* out, int n, unsigned v) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = v;
+}
 
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_kernel(const float* __restrict__ pd, const int* __restrict__ pi,
@@ -1010,8 +1180,9 @@ radix_emit_kernel(const unsigned long long* __restrict__ keys,
 template <int N, bool BF16, int MODE, bool CHUNKED>
 cudaError_t launch_scan(dim3 grid, const Layout& L, cudaStream_t s,
                         const CUtensorMap& xmap, const CUtensorMap& bmap,
-                        const float* q, float* pd, int* pi, float* scores, int B,
-                        int D, int k, int n_tiles, int per, int l2, int row_len) {
+                        const float* q, float* pd, int* pi, unsigned* bound,
+                        float* scores, int B, int D, int k, int n_tiles, int per, int l2,
+                        int row_len) {
   auto kernel = k1_scan_kernel<N, BF16, MODE, CHUNKED>;
   static unsigned opted = 0;  // one bit per device
   int dev = 0;
@@ -1023,7 +1194,7 @@ cudaError_t launch_scan(dim3 grid, const Layout& L, cudaStream_t s,
     if (e != cudaSuccess) return e;
     if (dev < 32) opted |= 1u << dev;
   }
-  kernel<<<grid, THREADS, L.bytes(), s>>>(xmap, bmap, q, pd, pi, scores, B, D, k,
+  kernel<<<grid, THREADS, L.bytes(), s>>>(xmap, bmap, q, pd, pi, bound, scores, B, D, k,
                                           n_tiles, per, l2, row_len, L);
   return cudaGetLastError();
 }
@@ -1031,8 +1202,8 @@ cudaError_t launch_scan(dim3 grid, const Layout& L, cudaStream_t s,
 template <bool BF16, int MODE>
 cudaError_t launch_scan_nq(int nq, bool chunked, dim3 grid, const Layout& L, cudaStream_t s,
                            const CUtensorMap& xmap, const CUtensorMap& bmap, const float* q,
-                           float* pd, int* pi, float* scores, int B, int D, int k,
-                           int n_tiles, int per, int l2, int row_len) {
+                           float* pd, int* pi, unsigned* bound, float* scores, int B,
+                           int D, int k, int n_tiles, int per, int l2, int row_len) {
   auto launch = launch_scan<8, BF16, MODE, false>;
   switch (nq) {
     case 8:  // rows too wide for the query tiles are walked in chunks
@@ -1044,19 +1215,34 @@ cudaError_t launch_scan_nq(int nq, bool chunked, dim3 grid, const Layout& L, cud
     case 128: launch = launch_scan<128, BF16, MODE, false>; break;
     default: return cudaErrorInvalidValue;
   }
-  return launch(grid, L, s, xmap, bmap, q, pd, pi, scores, B, D, k, n_tiles, per, l2, row_len);
+  return launch(grid, L, s, xmap, bmap, q, pd, pi, bound, scores, B, D, k, n_tiles, per, l2,
+                row_len);
+}
+
+// LONG only at tiles of 64 and 128 queries (the wrapper routes narrower
+// tiles to the large-k route): each instantiation is a minute of nvcc.
+template <bool BF16>
+cudaError_t launch_long(int nq, bool chunked, dim3 grid, const Layout& L, cudaStream_t s,
+                        const CUtensorMap& xmap, const CUtensorMap& bmap, const float* q,
+                        float* pd, int* pi, unsigned* bound, float* scores, int B, int D,
+                        int k, int n_tiles, int per, int l2, int row_len) {
+  if (chunked || (nq != 64 && nq != 128)) return cudaErrorInvalidValue;
+  auto launch = launch_scan<128, BF16, LONG, false>;
+  if (nq == 64) launch = launch_scan<64, BF16, LONG, false>;
+  return launch(grid, L, s, xmap, bmap, q, pd, pi, bound, scores, B, D, k, n_tiles, per, l2,
+                row_len);
 }
 
 // The bias and the product pass.  x: [cap, D] f32 with rows x_stride floats
 // apart (a multiple of 4, 16-byte aligned); bias: [n_tiles * 128] scratch.
 int scan(int mode, const float* q, const float* x, const uint8_t* valid,
-         const float* x_sq, float* bias, float* pd, int* pi, float* scores, int B,
-         int cap, int D, int x_stride, int k, int l2, int exact, int nq,
+         const float* x_sq, float* bias, float* pd, int* pi, unsigned* bound, float* scores,
+         int B, int cap, int D, int x_stride, int k, int l2, int exact, int nq,
          int splits, int per, cudaStream_t s) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return NO_LIBCUDA;
   const int store = mode == STORE;
-  const Layout L = scan_layout(D, nq, !exact, store, k);
+  const Layout L = scan_layout(D, nq, !exact, mode, k);
   if (L.stages < 2 || (x_stride & 3) || (store && nq > 64) || (nq == 128 && L.nb > 4))
     return BAD_TILE;
   const int n_tiles = (cap + TILE - 1) / TILE;
@@ -1067,13 +1253,17 @@ int scan(int mode, const float* q, const float* x, const uint8_t* valid,
   if (err) return err;
   row_bias_kernel<<<(n_tiles * TILE + 255) / 256, 256, 0, s>>>(
       valid, x_sq, bias, cap, n_tiles * TILE, l2);
+  if (mode == LONG)  // no split has published a bound yet
+    fill_kernel<<<(B * splits + 255) / 256, 256, 0, s>>>(bound, B * splits, ROOM_BOUND);
   const dim3 grid((B + nq - 1) / nq, splits);
   const int row_len = n_tiles * TILE;
   const bool chunked = L.qb < L.whole();
   // one instantiation per (operands, mode); the tile width picks within it
-  auto launch = exact ? (store ? launch_scan_nq<false, STORE> : launch_scan_nq<false, SCAN>)
-                      : (store ? launch_scan_nq<true, STORE> : launch_scan_nq<true, SCAN>);
-  const cudaError_t e = launch(nq, chunked, grid, L, s, xmap, bmap, q, pd, pi, scores, B, D, k,
+  auto launch = exact ? launch_scan_nq<false, SCAN> : launch_scan_nq<true, SCAN>;
+  if (mode == STORE) launch = exact ? launch_scan_nq<false, STORE> : launch_scan_nq<true, STORE>;
+  if (mode == LONG) launch = exact ? launch_long<false> : launch_long<true>;
+  const cudaError_t e = launch(nq, chunked, grid, L, s, xmap, bmap, q, pd, pi, bound, scores,
+                               B, D, k,
                                n_tiles, per, l2, row_len);
   return (int)e;
 }
@@ -1089,17 +1279,20 @@ int ehtorch_k1_tile(int B, int D, int exact, int store) {
   return pick_nq(B, D, !exact, store);
 }
 
-// K1.  pd/pi: [B, splits, k] scratch; bias: [ceil(cap / 128) * 128] f32
-// scratch; od/oi: [B, k] results.  nq from ehtorch_k1_tile; splits slices
-// of tiles_per_split 128-row tiles each.
+// K1 for k <= 32, and for k <= MAX_LONG_K at nq 64 or 128.  pd/pi: [B,
+// splits, k] scratch; bias: [ceil(cap / 128) * 128] f32 scratch; bound: [B,
+// splits] u32 scratch (read for k > 32 only); od/oi: [B, k] results.  nq
+// from ehtorch_k1_tile; splits slices of tiles_per_split 128-row tiles each.
 int ehtorch_fused_topk(const float* q, const float* x, const uint8_t* valid,
-                       const float* x_sq, float* bias, float* pd, int* pi,
+                       const float* x_sq, float* bias, float* pd, int* pi, unsigned* bound,
                        float* od, int* oi, int B, int cap, int D, int x_stride,
                        int k, int l2, int exact, int nq, int splits,
                        int tiles_per_split, int merge_slots, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = scan(SCAN, q, x, valid, x_sq, bias, pd, pi, nullptr, B, cap, D,
-                 x_stride, k, l2, exact, nq, splits, tiles_per_split, s);
+  if (k > MAX_LONG_K || (k > 32 && nq < 64))  // the large-k route's
+    return (int)cudaErrorInvalidValue;
+  int err = scan(k > 32 ? LONG : SCAN, q, x, valid, x_sq, bias, pd, pi, bound, nullptr, B, cap,
+                 D, x_stride, k, l2, exact, nq, splits, tiles_per_split, s);
   if (err) return err;
   const size_t smem = (size_t)merge_slots * sizeof(unsigned long long);
   if (smem > 48 * 1024) {  // above 48 KB only by opting in
@@ -1130,7 +1323,7 @@ int ehtorch_large_k(const float* q, const float* x, const uint8_t* valid,
                     int splits, int tiles_per_split, int slots, int row_bits,
                     int blocks_x, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = scan(STORE, q, x, valid, x_sq, bias, nullptr, nullptr, scores, B, cap,
+  int err = scan(STORE, q, x, valid, x_sq, bias, nullptr, nullptr, nullptr, scores, B, cap,
                  D, x_stride, 0, l2, exact, nq, splits, tiles_per_split, s);
   if (err) return err;
   const int row_len = (cap + TILE - 1) / TILE * TILE;

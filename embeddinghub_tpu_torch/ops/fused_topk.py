@@ -11,11 +11,12 @@ Two kernels, both hand-written CUDA for sm_90a:
     results; ``exact=False`` rounds the operands to bf16 and takes one
     pass), against a tile of queries as narrow as the batch (8 to 128).
     Scores that beat a query's k-th best go through small queues in shared
-    memory into its running list.  The lists serve k up to ``MAX_K_EXACT``;
-    :func:`exact_topk_large_k` is the route for any larger k up to the
-    capacity (the same product into a score buffer, radix select, then a
-    bitonic sort, with no readback between its launches), as the Pallas K1
-    has no k limit.
+    memory into its running list (past k = 32 a sorted list, merged a
+    queue at a time, whose k-th best the scan blocks of one query share).
+    The lists serve k up to ``MAX_K_LISTS``; :func:`exact_topk_large_k` is
+    the route for any larger k up to the capacity (the same product into a
+    score buffer, radix select, then a bitonic sort, with no readback
+    between its launches), as the Pallas K1 has no k limit.
   * K2, :func:`fused_topk_search_v2` -- approximate candidates, one bf16
     winner per group of 128 consecutive rows, then the k best winners,
     ``csrc/k2_scan.cu``: TMA loads of a bf16 mirror of the arena and wgmma
@@ -63,7 +64,10 @@ from embeddinghub_tpu_torch.ops import distance as D
 
 INF = float("inf")
 GROUP = 128            # K2's group width, the oracle's in the parity tests
-MAX_K_EXACT = 1024     # K1's running lists; past it, its large-k route
+MAX_K_EXACT = 1024     # K1 (exact_topk); past it, exact_topk_large_k
+MAX_K_LISTS = 512      # K1's running lists (k1_scan.cu MAX_LONG_K); past it, its large-k route
+LARGE_K_FROM = 128     # ... and past this k over few rows a k whose scores fit its buffer:
+LARGE_K_ROWS = 256     # at most this many rows a k (k1_route)
 MAX_K_APPROX = 256     # K2; the main path asks for k * 8 = 128
 MIRROR_BOX = 64        # K2's TMA box width in bf16 columns (k2_scan.cu)
 _MERGE_SLOTS = 16384   # K1: splits * k entries sorted per query by its merge
@@ -188,12 +192,44 @@ def arena_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def exact_topk(q, x, valid, x_sq, *, k, metric, exact=True):
-    """K1 over a row-major arena, any ``B`` and ``cap``."""
+    """K1 over a row-major arena, any ``B`` and ``cap``: the scan's running
+    lists, or at the shapes :func:`k1_route` names its large-k route."""
     _check_k(k, MAX_K_EXACT)
     if x.device.type == "cpu":
         return fused_topk_search_reference(q, x, valid, x_sq, k=k,
                                            metric=metric, exact=exact)
+    b, dims = q.shape
+    if (x.device.type == "cuda" and k > 32   # k <= 32: always the lists
+            and k1_route(k, b, x.shape[0], k1_tile(b, dims, exact)) == "large_k"):
+        return _launch_large_k(q, x, valid, x_sq, k, metric, exact)
     return _launch(q, x, valid, x_sq, k, metric, exact)
+
+
+def k1_tile(b: int, dims: int, exact: bool) -> int:
+    """The queries a K1 scan block owns for this batch and width (8 to 128;
+    k1_scan.cu pick_nq)."""
+    return _build.library().ehtorch_k1_tile(b, dims, int(exact), 0)
+
+
+def k1_route(k: int, b: int, cap: int, nq: int) -> str:
+    """The route :func:`exact_topk` takes on the card, from the shape alone
+    (``nq``: :func:`k1_tile`): ``"lists"`` (the scan keeps each query's
+    list; past k = 32 sorted, 16 keys a lane at most, in query tiles of 64
+    or 128) or ``"large_k"`` (the scores into a buffer, radix select).  The
+    large-k route takes k past ``MAX_K_LISTS``; k past 32 when the query
+    tile is narrower than 64 (a small batch, or rows too wide for a tile of
+    64); and k past ``LARGE_K_FROM`` over at most ``LARGE_K_ROWS`` rows a k
+    when the ``[b, cap]`` scores fit its buffer whole (one pass over the
+    arena): there a list takes a large share of the rows, and the lists lose
+    (on an H100, the routed pool, k=257 over 32,768 rows;
+    tools/probe_k1_parts.py, PERF.md)."""
+    if k > MAX_K_LISTS or (k > 32 and nq < 64):
+        return "large_k"
+    row_len = -(-cap // _BN) * _BN
+    if (k > LARGE_K_FROM and cap <= LARGE_K_ROWS * k
+            and b * row_len * 4 <= SCORE_BUFFER_BYTES):
+        return "large_k"
+    return "lists"
 
 
 def approx_candidates(q, xb, valid, x_sq, *, k, metric):
@@ -354,16 +390,17 @@ def _launch(q, x, valid, x_sq, k, metric, exact):
                 torch.empty((0, k), dtype=torch.int32, device=dev))
 
     lib = _build.library()
-    nq = lib.ehtorch_k1_tile(b, dims, int(exact), 0)  # queries a scan block
+    nq = k1_tile(b, dims, exact)  # queries a scan block
     splits, per_split = _splits(b, nq, cap, dev, _MERGE_SLOTS // k)
     slots = 1 << max(0, (splits * k - 1).bit_length())
 
     bias = torch.empty((-(-cap // _BN) * _BN,), dtype=torch.float32, device=dev)
     pd = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
     pi = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
+    bound = torch.empty((b, splits), dtype=torch.int32, device=dev)  # the splits' shared bound
     od = torch.empty((b, k), dtype=torch.float32, device=dev)
     oi = torch.empty((b, k), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in (q, x, valid, x_sq, bias, pd, pi, od, oi)]
+    ptrs = [t.data_ptr() for t in (q, x, valid, x_sq, bias, pd, pi, bound, od, oi)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ehtorch_fused_topk(

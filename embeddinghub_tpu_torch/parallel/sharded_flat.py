@@ -74,12 +74,12 @@ def padded_queries(queries: np.ndarray, metric: str) -> np.ndarray:
     return q
 
 
-def merge_lists(parts, dev0: torch.device, kk: int):
+def merge_lists(parts, dev0: torch.device, kk: int, width: int | None = None):
     """The shards' ``(dist, local ids)`` lists, in shard order, merged on
     ``dev0``: local row ``i`` of shard ``s`` is host row ``i * S + s`` (-1
     kept), the columns ``[B, S * kk]`` shard-major, +inf where an id is -1,
-    then the ``kk`` smallest, ties to the lower column (``lax.top_k``'s
-    order)."""
+    then the ``width`` smallest (``kk`` when ``None``), ties to the lower
+    column (``lax.top_k``'s order)."""
     s_n = len(parts)
     ds, ids = [], []
     for s, (d, i) in enumerate(parts):
@@ -87,15 +87,18 @@ def merge_lists(parts, dev0: torch.device, kk: int):
         ids.append(torch.where(i >= 0, i * s_n + s, -1).to(dev0))
         ds.append(d.to(dev0))
     dd, ii = torch.cat(ds, dim=1), torch.cat(ids, dim=1)
-    nd, pos = topk_ops.smallest_k(torch.where(ii >= 0, dd, torch.inf), kk)
+    width = kk if width is None else min(width, dd.shape[1])
+    nd, pos = topk_ops.smallest_k(torch.where(ii >= 0, dd, torch.inf), width)
     return nd, torch.gather(ii, 1, pos)
 
 
 def host_lists(merged, b: int, k: int) -> tuple[np.ndarray, np.ndarray]:
     """The first ``b`` rows and ``k`` columns of merged lists on the host,
-    -1 behind every +inf."""
-    d = merged[0][:b, :k].cpu().numpy()
-    i = merged[1][:b, :k].cpu().numpy()
+    -1 behind every +inf; empty slots (+inf, -1) past the lists' width."""
+    d, i = empty_lists(b, k)
+    w = min(k, merged[0].shape[1])
+    d[:, :w] = merged[0][:b, :w].cpu().numpy()
+    i[:, :w] = merged[1][:b, :w].cpu().numpy()
     i[~np.isfinite(d)] = -1
     return d, i
 
@@ -299,22 +302,27 @@ class ShardedFlatIndex(Index):
         return topk_ops.int8_oversample_search(*args, metric=self.metric, k=kk,
                                                oversample=over)
 
-    def search_device(self, q: np.ndarray, kk: int):
+    def search_device(self, q: np.ndarray, kk: int, width: int | None = None):
         """The sharded search of prepared queries ``q [pb, D]``
-        (:func:`padded_queries`) at width ``kk``: device ``(dist, ids)`` on
+        (:func:`padded_queries`), each shard at width ``kk``, merged to
+        ``width`` columns (``kk`` when ``None``): device ``(dist, ids)`` on
         the first device, ids host rows."""
         self._sync()
         return merge_lists([self._local_search(st, qd, kk)
                             for st, qd in zip(self._shards, self.mesh.put(q))],
-                           self.mesh.devices[0], kk)
+                           self.mesh.devices[0], kk, width)
 
     def search(self, queries: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
         queries = as_f32_matrix(queries, self.dims)
         b = queries.shape[0]
         if self._size == 0 or k <= 0:
             return empty_lists(b, k)
+        # Each shard returns at most its capacity; the merge keeps k whenever
+        # the shards hold k rows between them (the reference keeps kk, so
+        # past a shard's capacity it returns fewer; not copied on purpose).
         kk = min(next_pow2(k, floor=1), self._cap_local)
-        return host_lists(self.search_device(padded_queries(queries, self.metric), kk), b, k)
+        return host_lists(self.search_device(padded_queries(queries, self.metric), kk,
+                                             next_pow2(k, floor=1)), b, k)
 
     # ------------------------------------------------------------------ misc
 

@@ -82,6 +82,43 @@ def test_alignment_contract(fn, kw):
         fn(x[:8], arena, torch.ones(100, dtype=torch.bool), torch.zeros(100), k=4, **kw)
 
 
+def _tile_d128(b):
+    """k1_scan.cu pick_nq at D = 128: the narrowest of 8 .. 128 that holds
+    B (a query tile of 128 fits beside the ring with both operand types)."""
+    return min(128, max(8, 1 << (b - 1).bit_length()))
+
+
+def test_k1_route_by_shape():
+    """``exact_topk``'s route on the card, from the shape: running lists up
+    to ``MAX_K_LISTS`` (past k = 32 in query tiles of 64 or 128 only), the
+    large-k route past it, below such tiles, and past ``LARGE_K_FROM`` over
+    at most ``LARGE_K_ROWS`` rows a k whose ``[B, cap]`` scores fit its
+    buffer.  Of ``chip_smoke.py``'s K1 shapes (D = 128), the routed pools
+    (k=257 over 32,768 rows: B=4096 and both remainders) take the large-k
+    route; the graph, wave, refine, repair and shard pools (k=200 and 256
+    over 250,000 to 4M rows), the upper-layer pools (k=64) and every k=16
+    shape keep lists."""
+    import chip_smoke as C
+
+    routes = {(b, k, cap): F.k1_route(k, b, cap, _tile_d128(b))
+              for name, _, b, k, _, cap, _ in C.KERNEL_CASES if name == "fused_topk_search"}
+    large = {(C.FLUSH, C.ROUTED_K, C.ROUTED_S),
+             *((b, C.ROUTED_K, C.ROUTED_S) for b, _ in C.ROUTED_TAILS)}
+    assert large <= set(routes)
+    assert {s for s, r in routes.items() if r == "large_k"} == large
+    assert [F.k1_route(k, 64, 1000, 64) for k in (1, 32, 33, 128, 129, 512, 513, 1024)] == (
+        ["lists"] * 4 + ["large_k"] * 4)
+    # past LARGE_K_ROWS rows a k, or scores past the buffer: lists up to MAX_K_LISTS
+    many = F.LARGE_K_ROWS * 200 + 1
+    assert [F.k1_route(200, b, many, 128) for b in (64, 4096)] == ["lists"] * 2
+    assert [F.k1_route(k, 2 ** 16, 2 ** 15, 128) for k in (129, 512, 513)] == ["lists"] * 2 + [
+        "large_k"]
+    # query tiles under 64 (B <= 32, or rows too wide): lists for k <= 32 only
+    assert [F.k1_route(k, 32, many, nq) for k, nq in ((32, 32), (33, 32), (33, 8), (33, 64))] == [
+        "lists", "large_k", "large_k", "lists"]
+    assert F.MAX_K_LISTS < F.MAX_K_EXACT
+
+
 @pytest.mark.parametrize("fn,limit", [(F.exact_topk, F.MAX_K_EXACT),
                                       (F.approx_candidates, F.MAX_K_APPROX)])
 def test_k_limit(fn, limit):
@@ -366,6 +403,9 @@ def _k1_against_plain(route, q, x, valid, xsq, k, metric, exact, strict=False):
         "k1": ("fused_topk_search", F.exact_topk, F.fused_topk_search_reference),
         "large_k": ("fused_topk_search_large_k", F.exact_topk_large_k,
                     F.fused_topk_search_large_k_reference)}[route]
+    b, dims = q.shape
+    if route == "k1" and F.k1_route(k, b, x.shape[0], F.k1_tile(b, dims, exact)) == "large_k":
+        name = "fused_topk_search_large_k"  # exact_topk's route for this shape
     before = F.LAUNCHES[name]
     d, i = fn(q, x, valid, xsq, k=k, metric=metric, exact=exact)
     assert F.LAUNCHES[name] == before + 1
@@ -494,6 +534,65 @@ def test_k1_kernel_breaks_score_ties_by_row(k):
     # the copies of the nearest row r < 64 are r, r + 64, r + 128, .. in order
     near = i[:, :min(k, 8)]
     assert (near == near[:, :1] + 64 * np.arange(near.shape[1])).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [37, 1024, 4096])
+@pytest.mark.parametrize("k", [64, 200, 256, 257])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("live", ["all", "tail", "few"])
+@pytest.mark.parametrize("route", ["lists", "by_shape"])
+def test_k1_kernel_long_lists_match_plain(monkeypatch, route, live, exact, k, b):
+    """K1's sorted long lists (k > 32) at the graph pools' widths and at a
+    batch narrower than a query tile, over 32,768 l2 rows: every row live;
+    a live prefix of 20,000 and a dead tail (the routed pools' -1 rows);
+    and fewer live rows than k, which leaves the tail of every list
+    empty.  ``lists`` keeps the lists at every k here (these scores would
+    fit the large-k route's buffer); ``by_shape`` takes ``k1_route``'s
+    route."""
+    dev = _cuda()
+    if route == "lists":
+        monkeypatch.setattr(F, "LARGE_K_FROM", F.MAX_K_LISTS)
+    q, x, valid, xsq = _arena(17, 32_768, 128, b, "l2")
+    valid[:] = {"all": True, "tail": np.arange(len(valid)) < 20_000,
+                "few": np.arange(len(valid)) % 331 == 7}[live]
+    args = [t.to(dev) for t in _t(q, x, valid, xsq)]
+    d, i = _k1_against_plain("k1", *args, k, "l2", exact)
+    n_live = int(valid.sum())
+    assert (i[:, :min(k, n_live)] >= 0).all()
+    if n_live < k:
+        assert (i[:, n_live:] == -1).all() and np.isinf(d[:, n_live:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 200, 256, 257])
+@pytest.mark.parametrize("route", ["lists", "by_shape"])
+def test_k1_kernel_long_lists_break_score_ties_by_row(monkeypatch, route, k):
+    """64 rows copied 40 times over 2,560 rows: equal scores in every tile,
+    and the long lists keep the lower row first, whatever order the
+    candidates reach a list in (``route`` as in
+    ``test_k1_kernel_long_lists_match_plain``)."""
+    dev = _cuda()
+    if route == "lists":
+        monkeypatch.setattr(F, "LARGE_K_FROM", F.MAX_K_LISTS)
+    q, x, valid, xsq = _arena(18, 2_560, 24, 300, "l2")
+    valid[:] = True
+    for c in range(1, 40):
+        x[64 * c:64 * (c + 1)] = x[:64]
+    xsq = (x * x).sum(1)
+    args = [t.to(dev) for t in _t(q, x, valid, xsq)]
+    for exact in (True, False):
+        d, i = F.exact_topk(*args, k=k, metric="l2", exact=exact)
+        rd, ri = F.fused_topk_search_reference(*args, k=k, metric="l2", exact=exact)
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        tol = 1e-5 if exact else 1e-3
+        np.testing.assert_allclose(d, rd.cpu().numpy(), rtol=tol, atol=10 * tol)
+        for row_d, row_i in zip(d, i):
+            np.testing.assert_array_equal(np.lexsort((row_i, row_d)), np.arange(k))
+            assert len(set(row_i)) == k
+        # the 40 copies of the nearest row r < 64 are r, r + 64, .. in order
+        near = i[:, :40]
+        assert (near == near[:, :1] + 64 * np.arange(40)).all()
 
 
 def _k2_scores(q, xb, xsq, ids, metric):

@@ -167,6 +167,77 @@ def test_sharded_flat_matches_jax(s, metric, storage):
         np.testing.assert_array_equal(tidx.state_arrays()[name], arr, err_msg=name)
 
 
+def _exact_lists(x, valid, q, k, metric):
+    """``(dist, ids)`` of the ``k`` nearest live rows in float64: l2 squared
+    distances, or 1 - cos."""
+    x, q = x.astype(np.float64), q.astype(np.float64)
+    if metric == "cosine":
+        x = x / np.linalg.norm(x, axis=1, keepdims=True)
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+        d = 1.0 - q @ x.T
+    else:
+        d = (q * q).sum(1)[:, None] - 2.0 * (q @ x.T) + (x * x).sum(1)[None, :]
+    d = np.where(valid[None, :], d, np.inf)
+    ids = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d, ids, axis=1), ids
+
+
+@pytest.mark.parametrize("storage", STORAGE)
+@pytest.mark.parametrize("metric", METRICS)
+def test_sharded_flat_k_past_shard_capacity(metric, storage):
+    """400 rows on 4 shards of 128 rows: k=100 (at most a shard's capacity)
+    gives the JAX index's lists; k=300 gives 300 columns (the JAX index
+    stops at 128: the port departs from it on purpose): for f32 the exact
+    lists up to ties, for the int8 kinds distinct live ids at recall 0.95
+    against the exact oracle."""
+    x, q = _data(20, 400), _data(21, 6)
+    jidx, tidx = _pair(4, dims=D, metric=metric, storage_dtype=storage, capacity=400,
+                       quant_guard=False)
+    assert tidx._cap_local == 128
+    valid = np.ones(len(x), bool)
+    for idx in (jidx, tidx):
+        idx.add(np.arange(len(x)), x)
+    _assert_lists(storage, tidx.search(q, 100), jidx.search(q, 100), x, valid, q, metric)
+    assert jidx.search(q, 300)[1].shape == (6, 128)
+    td, ti = tidx.search(q, 300)
+    assert td.shape == ti.shape == (6, 300)
+    assert ((ti >= 0) & (ti < len(x))).all() and np.isfinite(td).all()
+    assert all(len(set(r.tolist())) == 300 for r in ti)
+    wd, wi = _exact_lists(x, valid, q, 300, metric)
+    if storage == "float32":
+        assert_ids_equal_off_ties(ti, wi, wd, 1e-4)
+        np.testing.assert_allclose(td, wd, rtol=1e-4, atol=1e-4)
+    else:
+        assert _recall(ti, wi) >= 0.95
+    # past the rows held: every live row, then empty slots
+    td, ti = tidx.search(q, 450)
+    assert ti.shape == (6, 450) and (ti[:, 400:] == -1).all()
+    assert np.isinf(td[:, 400:]).all() and all(set(r[:400].tolist()) == set(range(400))
+                                               for r in ti)
+
+
+@pytest.mark.parametrize("engine", ["sharded", "sharded-int8", "sharded-int8x2"])
+def test_sharded_store_nearest_batch_past_shard_capacity(engine):
+    """A ``sharded`` store of 400 rows on 4 shards of 256 rows answers
+    ``nearest_batch`` with 300 keys, those of the exact lists (f32 up to
+    ties; the int8 kinds at recall 0.95)."""
+    x, q = _data(22, 400), _data(23, 5)
+    keys = [f"k{j}" for j in range(len(x))]
+    hub = EmbeddingHub(engine=engine, mesh=Mesh(["cpu"] * 4))
+    version = hub.create_space("s", D).default_version()
+    version.multiset(zip(keys, x))
+    assert version.index._cap_local < 300
+    got = version.nearest_batch(q, 300)
+    wd, wi = _exact_lists(x, np.ones(len(x), bool), q, 300, "l2")
+    assert [len(g) for g in got] == [300] * len(q)
+    rows = np.asarray([[int(k[1:]) for k in g] for g in got])
+    if engine == "sharded":
+        assert_ids_equal_off_ties(rows, wi, wd, 1e-4)
+    else:
+        assert all(len(set(g)) == 300 for g in got)
+        assert _recall(rows, wi) >= 0.95
+
+
 def _pool_calls(monkeypatch):
     calls = []
     plain = F.pool_candidates_reference
