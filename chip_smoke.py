@@ -298,6 +298,9 @@ DEEP_STREAM, DEEP_WAVE, DEEP_SELF = 100_000, 8192, 64
 # The reference served recall@10 0.9871 after its guard escalated int8 to
 # int8x2 (RESULTS.md:159-162); the bar allows 0.01 for the sample.
 DEEP_RECALL = 0.977
+# Phase 2: a live prefix that ends mid-tile and mid-segment (a multiple of 8
+# rows, as torch._int_mm in the library call wants).
+POOL_PREFIX = 600_008
 # Phase 12, the sharded engines on a mesh of SHARDS shards of one card: (a)
 # phase 3's 1M x 128 cosine rows in a "sharded" store (250,000 live rows in
 # a local capacity of 2**18 a shard: K1 at k=16 on each); (b) phase 11's
@@ -356,6 +359,8 @@ KERNEL_CASES = (
 # K2's candidate pools (phase 11's phase 1) compared with their plain
 # version, at every shape phase 11 gives them: (kernel, metric, B, k,
 # capacity, live rows, dims, segment rows or None for one segment).  The
+# live rows are the arena's high-water mark, which the kernel is given (the
+# rows past it dead); the plain version scores the whole capacity.  The
 # int8 pools: the shallow flat-int8 and flat-int8x2 stores at 1M (k * 8 and
 # k * 16 of a 16-wide fetch); the deep int8x2 arena at B=1,024 (chunks of
 # 262,144 rows, 256 a chunk), its guard-off int8 twin (128 a chunk), the
@@ -365,6 +370,8 @@ KERNEL_CASES = (
 QUANT_CASES = (
     ("fused_topk_search_v2_int8", "cosine", MAIN_B, 128, CAP, ROWS, DIMS, None),
     ("fused_topk_search_v2_int8", "cosine", MAIN_B, 256, CAP, ROWS, DIMS, None),
+    # a live prefix that ends mid-segment, three segments of 2**17 rows past it
+    ("fused_topk_search_v2_int8", "cosine", DEEP_B, 256, CAP, POOL_PREFIX, DIMS, 1 << 17),
     ("fused_topk_search_v2_int8", "cosine", DEEP_B, 256, DEEP_CAP, DEEP_ROWS, DEEP_DIMS,
      DEEP_CHUNK),
     ("fused_topk_search_v2_int8", "cosine", DEEP_B, 128, DEEP_CAP, DEEP_ROWS, DEEP_DIMS,
@@ -714,12 +721,12 @@ def phase_quant_kernels(torch, x_host, report):
             args = (D.normalize(q_all[:b, :dims]), plane,
                     torch.arange(cap, device=CARD) < rows, i8p["sq"], i8p["sc"] if i8 else None)
             kw = dict(k=k, metric=metric, seg=seg)
-            got = F.pool_candidates(*args, **kw)
+            got = F.pool_candidates(*args, **kw, rows=rows)
             want = F.pool_candidates_reference(*args, **kw)
             torch.cuda.synchronize()
-            err, swaps = check_pool(torch, f"{name} B={b} cap={cap} k={k}", args, metric,
-                                    seg, got, want, i8)
-            ms = device_ms(torch, lambda: F.pool_candidates(*args, **kw))
+            err, swaps = check_pool(torch, f"{name} B={b} cap={cap} rows={rows} k={k}", args,
+                                    metric, seg, got, want, i8)
+            ms = device_ms(torch, lambda: F.pool_candidates(*args, **kw, rows=rows))
             plain_ms = device_ms(torch, lambda: F.pool_candidates_reference(*args, **kw))
             lib = library_pool(torch, args[0], plane[:rows], i8)
             library_ms = None if lib is None else device_ms(torch, lib)

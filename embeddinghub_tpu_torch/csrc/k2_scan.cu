@@ -44,10 +44,11 @@
 //     pack(score, row).  Each warpgroup stages its keys in shared memory
 //     and writes them to a [B, G] buffer (G = ceil(cap/128)) with one TMA
 //     store per 16 tiles, whole rows of 128 bytes instead of scattered
-//     8-byte writes.  k2_select_kernel then takes each query's k best keys: radix select of
-//     the k-th key, 8 bits a pass from the top, and a bitonic sort of the
-//     chosen k.  Past SELECT_CHUNK groups it selects per chunk and again
-//     over the chunks' winners.
+//     8-byte writes.  k2_select_kernel then takes each query's k best
+//     keys: it finds the k-th key by counting (a search over the keys'
+//     upper words held in registers, one block-wide sum a step), and a
+//     bitonic sort of the chosen k.  Past SELECT_CHUNK groups it selects
+//     per chunk and again over the chunks' winners.
 //  4. The grid.  Blocks of 128 queries along x, slices of the arena along
 //     y: the query tile varies fastest, so the blocks that share a slice
 //     run together and read it from L2, and the slice count fills the SMs
@@ -75,19 +76,28 @@
 //    scale[row] (qs = 2 qscale for l2, qscale otherwise), each product and
 //    the difference rounded on its own (no FMA), the order of the plain
 //    version (ops/fused_topk.py pool_candidates_reference), so the two give
-//    the same keys.  Replaces the XLA scans of
+//    the same keys.  (f32(acc) compiles to I2FP.F32.S32, no slower than
+//    the exact integer-add-and-subtract form on an H100: PERF.md.)
+//    Replaces the XLA scans of
 //    embeddinghub_tpu/ops/topk.py:301-313 (int8_oversample_search) and
 //    :697-710 (quantized_chunked_exact's chunks).
-//    Bound at the deep shape (10,485,760 x 96, B=1024): 2*B*cap*D = 2.06e12
-//    int8 operations take 1.04 ms at 1,979 TOPS; the plane (1.0 GB) and the
-//    x_sq, scales and valid (9 bytes a row) take 0.33 ms at 3.35 TB/s: the
-//    operations bound it.
+//    Bound at the deep shape (10,000,000 live of 10,485,760 x 96, B=1024):
+//    2*B*rows*D = 1.97e12 int8 operations take 0.99 ms at 1,979 TOPS; the
+//    plane (0.96 GB) and the x_sq, scales and valid (9 bytes a row) take
+//    0.31 ms at 3.35 TB/s: the operations bound it.  What bounds the scan
+//    on the card is its epilogue, seven ALU instructions a score
+//    (tools/probe_k2_parts.py: no_scores, no_products; PERF.md).
 //  A pool's keys are selected per segment of `seg` keys (a deep arena's
 //  chunk of rows, or the whole arena): the select below runs per (segment,
 //  part) block and again over the parts' winners until one block a segment
-//  is left, whose k best keys, ascending, are the output [B][segments][k].
-//  The main path is the same select over one segment, its last pass
-//  through the epilogue.
+//  is left, whose k best keys, ascending, it decodes into the output
+//  (scores, rows) [B][segments][k].  The main path is the same select over
+//  one segment, its last pass through the epilogue.  A pool scans and
+//  selects only the tiles below `rows`, the arena's high-water mark (every
+//  live row lies below it): a segment past it gets neither a scan nor a
+//  select (the wrapper fills its slots empty), one that it cuts is selected
+//  over its live tiles' keys, and the output is the same as over the whole
+//  capacity, whose rows past the mark are dead.
 //
 // A kernel launches on the caller's stream and allocates nothing.  The C
 // entry returns 0, a CUDA error code, or NO_LIBCUDA / ENCODE_FAILED + the
@@ -96,6 +106,7 @@
 #include <cuda_bf16.h>
 
 #include <type_traits>
+#include <utility>
 
 #include "hopper_common.cuh"
 
@@ -118,6 +129,9 @@ constexpr int STORE_BYTES = 2 * 2 * WG_Q * STORE_TILES * 8;  // 2 warpgroups x 2
 constexpr int MAX_STAGES = 8;               // ring depth at most (more gained nothing)
 constexpr int MIN_RESIDENT_STAGES = 4;       // else the query tile streams
 constexpr int SELECT_CHUNK = 8192;           // keys one select block holds
+constexpr int SELECT_THREADS = 512;          // threads of a select block
+constexpr int SELECT_WARPS = SELECT_THREADS / 32;
+constexpr int SELECT_PER = SELECT_CHUNK / SELECT_THREADS;  // keys a select thread holds
 constexpr int POOL_BIN = 32;                 // rows a pool's key stands for
 constexpr int MAX_POOL_KP = 4096;            // a pool's k, rounded up to a power of two, at most
 
@@ -434,7 +448,11 @@ __device__ __forceinline__ int issue_rs(float* acc, const uint32_t (&afrag)[RS][
 // unconditional.  RS = 0: both operands from shared memory, any width, one
 // accumulator, the two warpgroups side by side.  I8 (RS = 0 only): int8
 // operands, int32 accumulators, and the scale ring (smap) beside the bias
-// ring; qs [B] the queries' multipliers.  BIN: see tile_epilogue.
+// ring; qs [B] the queries' multipliers.  The int8 scan keeps one
+// accumulator: its epilogue (seven ALU instructions a score) bounds it, and
+// the two warpgroups already take turns at the tensor cores (two
+// accumulators issuing tile t + 1's products first measured 9 % slower on
+// an H100: PERF.md).  BIN: see tile_epilogue.
 template <int RS, int BIN, bool I8>
 __global__ void __launch_bounds__(THREADS, 1)
 k2_scan_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -654,113 +672,181 @@ k2_queries_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ qb, i
 
 // ------------------------------------------------------------ selection
 
+// What a select pass writes: the k best keys of each block (a pass that
+// another follows), the main path's result slots through the epilogue
+// (emit), or a pool's (score, row) pairs decoded from its keys.
+enum SelectOut { TO_KEYS = 0, TO_EMIT = 1, TO_DECODE = 2 };
+
+// The sum over the block of each thread's count; a barrier.  parity
+// alternates the two arrays of warp sums, so that one barrier a count
+// keeps a count's reads apart from the next count's writes.
+__device__ __forceinline__ unsigned block_count(unsigned mine, unsigned (*sums)[SELECT_WARPS],
+                                                int& parity) {
+  const int lane = threadIdx.x & 31;
+  mine = __reduce_add_sync(FULL, mine);
+  if (lane == 0) sums[parity][threadIdx.x >> 5] = mine;
+  __syncthreads();
+  const unsigned total =
+      __reduce_add_sync(FULL, lane < SELECT_WARPS ? sums[parity][lane] : 0u);
+  parity ^= 1;
+  return total;
+}
+
 // One block per (chunk, query): the k smallest of the chunk's keys (a
 // query's n keys start every stride keys).  The keys fall in segments of
 // seg keys, each cut in cps chunks of at most `chunk` keys: block x is
 // chunk x % cps of segment x / cps, and a chunk never crosses a segment's
-// end (the main path: one segment, seg = n).  Radix
-// select finds the k-th key 8 bits a pass from the top, counting in a
-// 256-bin histogram the keys that match the digits chosen so far, and
-// stops as soon as the chosen bin holds exactly the keys still needed.
-// The keys below the bound, then copies of the bound up to k, are sorted
-// (bitonic, in shared memory) and written out: to out [B][chunks][k], or,
-// for the last pass (EMIT), through the epilogue into od/oi [B][k].  A
-// chunk with fewer than k keys pads with all ones, which sorts last and
-// emits as an empty slot.
-template <bool EMIT>
-__global__ void __launch_bounds__(MERGE_THREADS)
-k2_select_kernel(const unsigned long long* __restrict__ in, int n, int stride,
-                 int chunk, int seg, int cps, int k, int kp,
+// end (the main path: one segment, seg = n).
+//
+// The block copies its keys into shared memory and keeps their upper words
+// (the score's order bits) in registers, SELECT_PER a thread, strided so
+// the loads coalesce.  It finds the take-th smallest key v by counting: a
+// bisection over the upper words for the largest word H with fewer than
+// take keys below it, then, where H's keys straddle the bound (equal
+// scores, empty bins), a bisection over the row word among them.  Each
+// step is one compare a key and one block-wide sum, and a step whose count
+// is exactly take ends the search (two bounds a step, placed by
+// interpolation, measured slower on an H100: PERF.md).  No histogram, no
+// atomics on a shared bin: the radix select this replaces walked the keys
+// in shared memory up to eight times with a ballot and a match_any a key.
+// The keys below v,
+// then copies of v up to take, are sorted (bitonic, in shared memory) and
+// written out.  A chunk with fewer than k keys pads with all ones, which
+// sorts last and reads as an empty slot.
+template <int OUT>
+__global__ void __launch_bounds__(SELECT_THREADS, 3)
+k2_select_kernel(const unsigned long long* __restrict__ in, int n, int stride, int chunk,
+                 int seg, int cps, int k, int kp, int out_segs,
                  unsigned long long* __restrict__ out, const float* __restrict__ q,
                  float* __restrict__ od, int* __restrict__ oi, int D, int l2) {
   extern __shared__ unsigned long long sk[];  // [chunk] keys, then [kp] chosen
   unsigned long long* sel = sk + chunk;
-  __shared__ unsigned hist[256];
-  __shared__ unsigned long long s_prefix;
-  __shared__ int s_need, s_done, s_count;
-  __shared__ float red[MERGE_THREADS / 32];
+  __shared__ unsigned sums[2][SELECT_WARPS];
+  __shared__ unsigned s_lo[SELECT_WARPS], s_hi[SELECT_WARPS];
+  __shared__ int s_count;
+  __shared__ float s_qsq;
   const int b = blockIdx.y;
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int seg_lo = c / cps * seg;
+  const int sg = c / cps;
+  const int seg_lo = sg * seg;
   const int part = c % cps * chunk;
-  const int lo = seg_lo + part;
-  const int m = min(chunk, min(seg, n - seg_lo) - part);
-  if (m <= 0) {  // a ragged last segment's empty chunk: all padding
-    if constexpr (!EMIT)
-      for (int j = tid; j < k; j += MERGE_THREADS)
-        out[((size_t)b * gridDim.x + c) * k + j] = ~0ull;
-    return;
-  }
-  const unsigned long long* src = in + (size_t)b * stride + lo;
-  for (int e = tid; e < m; e += MERGE_THREADS) sk[e] = src[e];
+  const int m = max(0, min(chunk, min(seg, n - seg_lo) - part));
   const int take = min(k, m);
+  const unsigned long long* src = in + (size_t)b * stride + seg_lo + part;
+  unsigned hi[SELECT_PER];  // upper words; all ones past the chunk's keys
+#pragma unroll
+  for (int i = 0; i < SELECT_PER; ++i) {
+    const int e = tid + i * SELECT_THREADS;
+    hi[i] = ~0u;
+    if (e < m) {
+      const unsigned long long key = src[e];
+      sk[e] = key;
+      hi[i] = (unsigned)(key >> 32);
+    }
+  }
+  if (tid == 0) s_count = 0;
+  int parity = 0;
 
-  unsigned long long prefix = 0, mask = 0;
-  int need = take;
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int e = tid; e < 256; e += MERGE_THREADS) hist[e] = 0;
-    __syncthreads();
-    for (int base = 0; base < m; base += MERGE_THREADS) {
-      const int e = base + tid;
-      const unsigned long long key = e < m ? sk[e] : 0ull;
-      const bool in_bin = e < m && ((key ^ prefix) & mask) == 0;
-      const unsigned digit = (unsigned)(key >> shift) & 255u;
-      const unsigned act = __ballot_sync(FULL, in_bin);
-      if (in_bin) {
-        const unsigned peers = __match_any_sync(act, digit);
-        if ((peers & ((1u << lane) - 1)) == 0) atomicAdd(&hist[digit], __popc(peers));
+  // v: the take-th smallest key, or a bound with exactly take keys below it
+  // (all ones when the chunk has at most k).
+  unsigned long long v = ~0ull;
+  if (m > k) {
+    unsigned lo_h = ~0u, hi_h = 0;
+#pragma unroll
+    for (int i = 0; i < SELECT_PER; ++i)
+      if (tid + i * SELECT_THREADS < m) {
+        lo_h = min(lo_h, hi[i]);
+        hi_h = max(hi_h, hi[i]);
       }
+    lo_h = __reduce_min_sync(FULL, lo_h);
+    hi_h = __reduce_max_sync(FULL, hi_h);
+    if (lane == 0) {
+      s_lo[tid >> 5] = lo_h;
+      s_hi[tid >> 5] = hi_h;
     }
     __syncthreads();
-    if (tid < 32) {  // lane l scans bins 8l .. 8l + 7
-      unsigned h[8], sum = 0;
+    lo_h = __reduce_min_sync(FULL, lane < SELECT_WARPS ? s_lo[lane] : ~0u);
+    hi_h = __reduce_max_sync(FULL, lane < SELECT_WARPS ? s_hi[lane] : 0u);
+    // #(upper word < L) = below < take < #(upper word < R); past the
+    // chunk's keys the upper words are all ones, never below a mid < R.
+    unsigned long long L = lo_h, R = (unsigned long long)hi_h + 1;
+    unsigned below = 0;
+    bool exact = false;
+    while (R - L > 1) {
+      const unsigned mid = (unsigned)((L + R) >> 1);
+      unsigned mine = 0;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        h[i] = hist[8 * lane + i];
-        sum += h[i];
+      for (int i = 0; i < SELECT_PER; ++i) mine += hi[i] < mid;
+      const unsigned cnt = block_count(mine, sums, parity);
+      if (cnt == (unsigned)take) {
+        v = (unsigned long long)mid << 32;
+        exact = true;
+        break;
       }
-      unsigned incl = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned o = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl += o;
-      }
-      unsigned below = incl - sum;
-      if (below < (unsigned)need && (unsigned)need <= incl) {
-        int i = 0;
-        while (below + h[i] < (unsigned)need) below += h[i++];
-        s_prefix = prefix | ((unsigned long long)(8 * lane + i) << shift);
-        s_need = need - (int)below;
-        s_done = h[i] == (unsigned)(need - (int)below);
+      if (cnt < (unsigned)take) {
+        L = mid;
+        below = cnt;
+      } else {
+        R = mid;
       }
     }
-    __syncthreads();
-    prefix = s_prefix;
-    need = s_need;
-    mask |= 0xffull << shift;
-    if (s_done) break;
+    if (!exact) {
+      // v's upper word is L; among L's keys, the bound on the row word
+      const unsigned h = (unsigned)L;
+      unsigned long long lb = 0, rb = 1ull << 32;
+      while (rb - lb > 1) {
+        const unsigned long long mid = (lb + rb) >> 1;
+        unsigned mine = 0;
+#pragma unroll
+        for (int i = 0; i < SELECT_PER; ++i)
+          mine += tid + i * SELECT_THREADS < m && hi[i] == h &&
+                  (sk[tid + i * SELECT_THREADS] & 0xffffffffull) < mid;
+        const unsigned cnt = below + block_count(mine, sums, parity);
+        if (cnt == (unsigned)take) {
+          lb = mid;
+          exact = true;
+          break;
+        }
+        if (cnt < (unsigned)take)
+          lb = mid;
+        else
+          rb = mid;
+      }
+      v = ((unsigned long long)h << 32) | lb;
+    }
   }
 
-  // Every key below lim is taken; keys equal to it fill what is left.
-  const unsigned long long lim = prefix | ~mask;
-  if (tid == 0) s_count = 0;
+  // The keys below v, in any order, then copies of v up to take.
   __syncthreads();
-  for (int e = tid; e < m; e += MERGE_THREADS)
-    if (sk[e] < lim) sel[atomicAdd(&s_count, 1)] = sk[e];
+  unsigned mine = 0;
+#pragma unroll
+  for (int i = 0; i < SELECT_PER; ++i) {
+    const int e = tid + i * SELECT_THREADS;
+    mine += e < m && sk[e] < v;
+  }
+  unsigned incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned o = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += o;
+  }
+  unsigned base = 0;
+  if (lane == 31) base = atomicAdd(&s_count, (int)incl);
+  unsigned pos = __shfl_sync(FULL, base, 31) + incl - mine;
+#pragma unroll
+  for (int i = 0; i < SELECT_PER; ++i) {
+    const int e = tid + i * SELECT_THREADS;
+    if (e < m && sk[e] < v) sel[pos++] = sk[e];
+  }
   __syncthreads();
-  for (int e = tid; e < m; e += MERGE_THREADS)
-    if (sk[e] == lim) {
-      const int pos = atomicAdd(&s_count, 1);
-      if (pos < take) sel[pos] = lim;
-    }
-  __syncthreads();
-  for (int e = take + tid; e < kp; e += MERGE_THREADS) sel[e] = ~0ull;
+  for (int e = s_count + tid; e < take; e += SELECT_THREADS) sel[e] = v;
+  for (int e = take + tid; e < kp; e += SELECT_THREADS) sel[e] = ~0ull;
   for (int size = 2; size <= kp; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       __syncthreads();
-      for (int e = tid; e < kp / 2; e += MERGE_THREADS) {
+      for (int e = tid; e < kp / 2; e += SELECT_THREADS) {
         const int a = 2 * e - (e & (stride - 1));
         const int z = a + stride;
         const bool up = (a & size) == 0;
@@ -773,13 +859,30 @@ k2_select_kernel(const unsigned long long* __restrict__ in, int n, int stride,
     }
   }
   __syncthreads();
-  if constexpr (EMIT) {
-    const float qsq = block_sqnorm(q + (size_t)b * D, D, l2, red);
-    for (int j = tid; j < k; j += MERGE_THREADS)
-      emit(sel[j], qsq, l2, od, oi, (size_t)b * k + j);
+  if constexpr (OUT == TO_EMIT) {
+    if (tid < 32) {
+      const float* qb = q + (size_t)b * D;
+      float part_sq = 0.f;
+      if (l2)
+        for (int d = lane; d < D; d += 32) part_sq = fmaf(qb[d], qb[d], part_sq);
+#pragma unroll
+      for (int off = 16; off; off >>= 1) part_sq += __shfl_xor_sync(FULL, part_sq, off);
+      if (lane == 0) s_qsq = part_sq;
+    }
+    __syncthreads();
+    for (int j = tid; j < k; j += SELECT_THREADS)
+      emit(sel[j], s_qsq, l2, od, oi, (size_t)b * k + j);
+  } else if constexpr (OUT == TO_DECODE) {
+    const size_t at = ((size_t)b * out_segs + sg) * k;
+    for (int j = tid; j < k; j += SELECT_THREADS) {
+      const float s = unpack_score(sel[j]);
+      const bool hit = isfinite(s);
+      od[at + j] = hit ? s : INF;
+      oi[at + j] = hit ? (int)(unsigned)(sel[j] & 0xffffffffu) : -1;
+    }
   } else {
     unsigned long long* dst = out + ((size_t)b * gridDim.x + c) * k;
-    for (int j = tid; j < k; j += MERGE_THREADS) dst[j] = sel[j];
+    for (int j = tid; j < k; j += SELECT_THREADS) dst[j] = sel[j];
   }
 }
 
@@ -824,7 +927,6 @@ cudaError_t opt_in_shared_memory() {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 32 && (done >> dev) & 1u)) return e;
-  const int select_most = (SELECT_CHUNK + MAX_POOL_KP) * (int)sizeof(unsigned long long);
   const void* scans[] = {
       (const void*)k2_scan_kernel<0, GROUP, false>, (const void*)k2_scan_kernel<1, GROUP, false>,
       (const void*)k2_scan_kernel<2, GROUP, false>, (const void*)k2_scan_kernel<3, GROUP, false>,
@@ -836,12 +938,13 @@ cudaError_t opt_in_shared_memory() {
   for (const void* f : scans)
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k2_select_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, select_most);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k2_select_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, select_most);
+  const int select_most = (SELECT_CHUNK + MAX_POOL_KP) * (int)sizeof(unsigned long long);
+  const void* selects[] = {(const void*)k2_select_kernel<TO_KEYS>,
+                           (const void*)k2_select_kernel<TO_EMIT>,
+                           (const void*)k2_select_kernel<TO_DECODE>};
+  for (const void* f : selects)
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, select_most);
   if (e == cudaSuccess && dev < 32) done |= 1u << dev;
   return e;
 }
@@ -890,27 +993,45 @@ extern "C" {
 // int8 queries in rows of q_bytes bytes and qs [B] their multipliers (2
 // qscale for l2, qscale otherwise); plane the [cap, D] int8 hi plane in
 // rows of plane_bytes bytes (both multiples of 16, 16-byte aligned),
-// scales [cap] f32.  valid [cap] u8, x_sq [cap] f32.  Scratch: bias and
-// sc [G * 128] f32 (G = ceil(cap / 128); sc for i8 only); keys [B,
-// stride], stride >= G * 128 / bin, even; part [B, segments * parts * k]
-// when a segment holds more than SELECT_CHUNK keys (parts = ceil(seg /
-// SELECT_CHUNK)), else unused.  emit = 1 (the main path: bf16, one
-// segment): the epilogue writes od/oi [B, k]; emit = 0: out [B, segments,
-// k], each segment's k smallest keys, ascending, all ones past its keys.
+// scales [cap] f32.  valid [cap] u8, x_sq [cap] f32.  rows: every live row
+// lies below it (the arena's high-water mark, at most cap): the scan and
+// the selects cover the T = ceil(rows / 128) tiles below it, and a segment
+// past them is left to the caller (rows > 0).  Scratch: bias and sc
+// [T * 128] f32 (sc for i8 only); keys [B, stride], stride even, at
+// least T * 128 / bin and, where a segment takes three select passes, the
+// second pass's live segments * ceil(parts * k / SELECT_CHUNK) * k keys;
+// part [B, live segments * parts * k] when a segment holds more than
+// SELECT_CHUNK keys (parts = ceil(seg / SELECT_CHUNK)), else unused.
+// emit = 1 (the main path: bf16, one segment, rows = cap): the epilogue
+// writes od/oi [B, k]; emit = 0: od/oi [B, segments, k], each live
+// segment's k best (score, row) ascending, (+inf, -1) past its live bins.
 // k <= MAX_POOL_KP.  splits: arena slices along the scan grid's y.
 int ehtorch_k2(const void* q, const float* qs, const uint8_t* valid, const float* x_sq,
                const float* scales, const void* plane, void* qb, float* bias, float* sc,
-               unsigned long long* keys, unsigned long long* part, unsigned long long* out,
-               float* od, int* oi, int B, int cap, int D, int Dp, int q_bytes,
-               int plane_bytes, int stride, int k, int seg, int bin, int l2, int cosine,
-               int i8, int emit, int splits, void* stream) {
+               unsigned long long* keys, unsigned long long* part, float* od, int* oi, int B,
+               int cap, int rows, int D, int Dp, int q_bytes, int plane_bytes, int stride, int k,
+               int seg, int bin, int l2, int cosine, int i8, int emit, int splits,
+               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int kp = 1;
   while (kp < k) kp <<= 1;
   const int n_tiles = (cap + GROUP - 1) / GROUP;
-  const int nk = n_tiles * (GROUP / max(bin, 1));
-  if (kp > MAX_POOL_KP || seg < 1 || (bin != GROUP && bin != POOL_BIN) ||
-      (i8 && bin != POOL_BIN) || (emit && (i8 || seg < nk)))
+  const int kpt = GROUP / max(bin, 1);
+  const int nk = n_tiles * kpt;
+  const int lt = (max(0, min(rows, cap)) + GROUP - 1) / GROUP;  // live tiles
+  const int nk_live = lt * kpt;
+  if (kp > MAX_POOL_KP || seg < 1 || lt < 1 || (bin != GROUP && bin != POOL_BIN) ||
+      (i8 && bin != POOL_BIN) || (emit && (i8 || seg < nk || lt != n_tiles)) || stride < nk_live)
+    return (int)cudaErrorInvalidValue;
+  const int n_seg = (nk + seg - 1) / seg;
+  const int n_live = (nk_live + seg - 1) / seg;  // segments with a live tile
+  // The select passes below alternate keys -> part -> keys ...: the first
+  // writes parts = ceil(seg / SELECT_CHUNK) chunks' k keys a live segment
+  // into part, the second ceil(parts * k / SELECT_CHUNK) into keys, and
+  // each later one fewer (k <= SELECT_CHUNK / 2), so these two bound them.
+  const int parts = (seg + SELECT_CHUNK - 1) / SELECT_CHUNK;
+  const int parts2 = (parts * k + SELECT_CHUNK - 1) / SELECT_CHUNK;
+  if (parts > 1 && parts2 > 1 && (size_t)n_live * parts2 * k > (size_t)stride)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return NO_LIBCUDA;
@@ -920,64 +1041,63 @@ int ehtorch_k2(const void* q, const float* qs, const uint8_t* valid, const float
     const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
     err = encode_rows(enc, &xmap, u8, plane, D, cap, (size_t)plane_bytes, 2 * BOX, GROUP);
     if (!err) err = encode_rows(enc, &qmap, u8, q, D, B, (size_t)q_bytes, 2 * BOX, GROUP);
-    if (!err) err = encode_bias(enc, &smap, sc, n_tiles * GROUP, GROUP);
+    if (!err) err = encode_bias(enc, &smap, sc, lt * GROUP, GROUP);
   } else {
     const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     err = encode_rows(enc, &xmap, bf16, plane, Dp, cap, (size_t)Dp * 2, BOX, GROUP);
     if (!err) err = encode_rows(enc, &qmap, bf16, qb, Dp, B, (size_t)Dp * 2, BOX, GROUP);
   }
-  if (!err) err = encode_bias(enc, &bmap, bias, n_tiles * GROUP, GROUP);
-  if (!err) err = encode_keys(enc, &kmap, keys, nk, stride, B);
+  if (!err) err = encode_bias(enc, &bmap, bias, lt * GROUP, GROUP);
+  if (!err) err = encode_keys(enc, &kmap, keys, nk_live, stride, B);
   if (err) return err;
   if (!i8) smap = bmap;  // unread
 
   if (i8)
-    row_scale_kernel<<<(n_tiles * GROUP + 255) / 256, 256, 0, s>>>(scales, sc, cap,
-                                                                   n_tiles * GROUP);
+    row_scale_kernel<<<(lt * GROUP + 255) / 256, 256, 0, s>>>(scales, sc, cap, lt * GROUP);
   else
     k2_queries_kernel<<<B, MERGE_THREADS, 0, s>>>(
         static_cast<const float*>(q), static_cast<__nv_bfloat16*>(qb), D, Dp, cosine);
-  row_bias_kernel<<<(n_tiles * GROUP + 255) / 256, 256, 0, s>>>(
-      valid, x_sq, bias, cap, n_tiles * GROUP, l2);
+  row_bias_kernel<<<(lt * GROUP + 255) / 256, 256, 0, s>>>(valid, x_sq, bias, cap,
+                                                           lt * GROUP, l2);
   cudaError_t e = opt_in_shared_memory();
   if (e != cudaSuccess) return (int)e;
   const Layout L = scan_layout(i8 ? D : Dp, i8);
   const float* qsp = i8 ? qs : nullptr;
-  e = i8 ? launch_scan<POOL_BIN, true>(xmap, qmap, bmap, smap, kmap, qsp, B, n_tiles, splits,
-                                       l2, L, s)
+  e = i8 ? launch_scan<POOL_BIN, true>(xmap, qmap, bmap, smap, kmap, qsp, B, lt, splits, l2,
+                                       L, s)
       : bin == GROUP
-          ? launch_scan<GROUP, false>(xmap, qmap, bmap, smap, kmap, qsp, B, n_tiles, splits,
-                                      l2, L, s)
-          : launch_scan<POOL_BIN, false>(xmap, qmap, bmap, smap, kmap, qsp, B, n_tiles,
-                                         splits, l2, L, s);
+          ? launch_scan<GROUP, false>(xmap, qmap, bmap, smap, kmap, qsp, B, lt, splits, l2,
+                                      L, s)
+          : launch_scan<POOL_BIN, false>(xmap, qmap, bmap, smap, kmap, qsp, B, lt, splits,
+                                         l2, L, s);
   if (e != cudaSuccess) return (int)e;
 
-  // Per segment: chunks of at most SELECT_CHUNK keys down to k keys each,
-  // until one chunk a segment is left; its k best are the output (through
-  // the epilogue when emit).
-  const int n_seg = (nk + seg - 1) / seg;
-  int n = nk, cur = seg, st = stride;
+  // Per live segment: chunks of at most SELECT_CHUNK keys down to k keys
+  // each, until one chunk a segment is left; its k best are the output
+  // (through the epilogue when emit).
+  int n = nk_live, cur = seg, st = stride;
   unsigned long long* src = keys;
   unsigned long long* dst = part;
   while (true) {
     const int cps = (cur + SELECT_CHUNK - 1) / SELECT_CHUNK;
     const int chunk = (cur + cps - 1) / cps;
     const size_t smem = (size_t)(chunk + kp) * sizeof(unsigned long long);
-    const dim3 grid(n_seg * cps, B);
-    unsigned long long* to = cps == 1 ? out : dst;
+    const dim3 grid(n_live * cps, B);
     if (cps == 1 && emit)
-      k2_select_kernel<true><<<grid, MERGE_THREADS, smem, s>>>(
-          src, n, st, chunk, cur, 1, k, kp, nullptr, static_cast<const float*>(q), od, oi,
+      k2_select_kernel<TO_EMIT><<<grid, SELECT_THREADS, smem, s>>>(
+          src, n, st, chunk, cur, 1, k, kp, 1, nullptr, static_cast<const float*>(q), od, oi,
           D, l2);
+    else if (cps == 1)
+      k2_select_kernel<TO_DECODE><<<grid, SELECT_THREADS, smem, s>>>(
+          src, n, st, chunk, cur, 1, k, kp, n_seg, nullptr, nullptr, od, oi, D, l2);
     else
-      k2_select_kernel<false><<<grid, MERGE_THREADS, smem, s>>>(
-          src, n, st, chunk, cur, cps, k, kp, to, nullptr, nullptr, nullptr, D, l2);
+      k2_select_kernel<TO_KEYS><<<grid, SELECT_THREADS, smem, s>>>(
+          src, n, st, chunk, cur, cps, k, kp, 0, dst, nullptr, nullptr, nullptr, D, l2);
     e = cudaGetLastError();
     if (e != cudaSuccess || cps == 1) return (int)e;
     cur = cps * k;
-    n = st = n_seg * cur;
-    dst = src;
-    src = to;
+    n = st = n_live * cur;
+    std::swap(src, dst);
   }
 }
 

@@ -245,6 +245,12 @@ def quantize_planes(x: torch.Tensor, metric: str, storage_dtype: str) -> dict:
     return planes
 
 
+def _high_water_of(valid: np.ndarray) -> int:
+    """A restored arena's high-water mark: one past its last live row."""
+    live = np.flatnonzero(valid)
+    return int(live[-1]) + 1 if live.size else 0
+
+
 def _adoptable(a, like: np.ndarray) -> bool:
     """Whether ``from_state`` may keep a snapshot's array as the index's
     own: a writable copy-on-write map of the same shape and type (anything
@@ -305,6 +311,9 @@ class FlatIndex(Index):
         self._hx = np.zeros((self._cap, self.dims), dtype=np.float32)
         self._hvalid = np.zeros((self._cap,), dtype=bool)
         self._size = 0
+        # The high-water mark: no row at or past it was ever written, so
+        # every live row lies below it (K2's pools scan no further).
+        self._high_water = 0
         # Device state: _dx the f32 arena (float32) or the int8 hi plane;
         # _dxb the bf16 mirror (float32, bfloat16); _dx_lo the int8x2
         # residual plane; _dscales the int8 row scales; _dx_sq; _dvalid.
@@ -332,7 +341,9 @@ class FlatIndex(Index):
             raise ValueError("rows / vecs length mismatch")
         if rows.size == 0:
             return
-        self._ensure_capacity(int(rows.max()) + 1)
+        top = int(rows.max()) + 1
+        self._ensure_capacity(top)
+        self._high_water = max(self._high_water, top)
         newly = ~self._hvalid[rows]
         self._size += int(np.count_nonzero(newly))
         self._hx[rows] = vecs
@@ -499,9 +510,10 @@ class FlatIndex(Index):
             return topk_ops.quantized_chunked_exact(
                 *args, metric=self.metric, k=kk, oversample=over,
                 chunk=self._deep_chunk(_bucket(q.shape[0])),
-                pool_budget=(1 << 17) * self.oversample_boost)
+                pool_budget=(1 << 17) * self.oversample_boost, rows=self._high_water)
         return topk_ops.int8_oversample_search(
-            *args, metric=self.metric, k=kk, oversample=min(over, max(1, self._cap // kk)))
+            *args, metric=self.metric, k=kk, oversample=min(over, max(1, self._cap // kk)),
+            rows=self._high_water)
 
     def _search_device(self, queries, k, mode, query_dtype):
         """Dispatch one search; returns device ``(dist, ids)`` of width
@@ -801,6 +813,7 @@ class FlatIndex(Index):
         else:
             idx._hvalid[: valid.shape[0]] = valid
         idx._size = int(np.count_nonzero(idx._hvalid))
+        idx._high_water = _high_water_of(idx._hvalid)
         if ("q_hi" in arrays and "q_sq" in arrays and "q_sc" in arrays
                 and idx.storage_dtype in _INT8
                 and arrays["q_hi"].shape == (idx._cap, idx.dims)

@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ehtorch_k1_tile": [_I] * 4,
     "ehtorch_fused_topk": [_P] * 10 + [_I] * 11 + [_P],
-    "ehtorch_k2": [_P] * 14 + [_I] * 15 + [_P],
+    "ehtorch_k2": [_P] * 13 + [_I] * 16 + [_P],
     "ehtorch_large_k_state_bytes": [_I],
     "ehtorch_large_k": [_P] * 10 + [_I] * 13 + [_P],
 }

@@ -21,8 +21,8 @@ Two kernels, both hand-written CUDA for sm_90a:
     winner per group of 128 consecutive rows, then the k best winners,
     ``csrc/k2_scan.cu``: TMA loads of a bf16 mirror of the arena and wgmma
     products, group winners as 64-bit keys into a ``[B, cap/128]`` buffer,
-    then a radix select per query.  The candidate stage of
-    ``approx_oversample_search``.
+    then a select per query (the k-th key found by counting).  The
+    candidate stage of ``approx_oversample_search``.
   * K2's candidate pools, :func:`pool_candidates` -- the phase 1 of the
     quantized arenas' searches (``ops/topk.py``), the same scan keeping one
     winner per ``POOL_BIN`` = 32 strided rows (four a 128-row tile), its
@@ -30,7 +30,9 @@ Two kernels, both hand-written CUDA for sm_90a:
     arena).  Over an int8 hi plane it is K2's int8 instantiation (int8
     wgmma with int32 sums, the queries quantized per row here, a ring of
     row scales; counted as ``fused_topk_search_v2_int8``); over a bf16
-    mirror (a deep bf16 arena) its bf16 scan.
+    mirror (a deep bf16 arena) its bf16 scan.  The scan and the selects
+    stop at the arena's high-water mark (``rows``), and the last select
+    writes the (score, row) pairs themselves.
 
 Neither writes the ``[B, cap]`` score matrix to device memory, which is
 the point: ``q @ x.T`` then ``torch.topk`` would write 16 GB at 1M rows and
@@ -259,7 +261,8 @@ def quantize_queries(qf: torch.Tensor, metric: str):
     return qq, qscale * 2.0 if metric == "l2" else qscale
 
 
-def pool_candidates(qf, plane, valid, x_sq, scales=None, *, k, metric, seg=None):
+def pool_candidates(qf, plane, valid, x_sq, scales=None, *, k, metric, seg=None,
+                    rows=None):
     """Phase 1 of the quantized searches (K2's candidate pool): each
     segment's ``k`` best bin winners, one winner per ``POOL_BIN`` rows.
 
@@ -270,16 +273,20 @@ def pool_candidates(qf, plane, valid, x_sq, scales=None, *, k, metric, seg=None)
     bf16 arena (:func:`arena_bf16`; bf16-rounded queries, ``bias - 2 q.x``
     or ``-q.x``).  The bias is ``x_sq`` (l2) or 0 for a live row, +inf for a
     dead one.  ``seg``: the rows of a segment, a multiple of 128 (``None``:
-    the whole arena is one).  Returns ``(scores, ids)``, each ``[B,
-    segments, k]``, ascending by (score, row): the scores in that minimized
-    convention, empty slots +inf and -1."""
+    the whole arena is one).  ``rows``: a bound that every live row lies
+    below (the arena's high-water mark; ``None``: the capacity); the scan
+    and the selects stop at it, and a segment past it comes back empty
+    without either.  The result does not depend on it.  Returns ``(scores,
+    ids)``, each ``[B, segments, k]``, ascending by (score, row): the scores
+    in that minimized convention, empty slots +inf and -1."""
     cap = plane.shape[0]
     seg_keys = _seg_keys(cap, seg)
     _check_k(k, MAX_K_POOL)
-    if plane.device.type == "cpu":
+    if plane.device.type == "cpu":  # the plain pool scores every row
         return pool_candidates_reference(qf, plane, valid, x_sq, scales, k=k,
                                          metric=metric, seg=seg)
-    return _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys)
+    rows = cap if rows is None else max(0, min(cap, int(rows)))
+    return _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys, rows)
 
 
 def _seg_keys(cap: int, seg) -> int:
@@ -418,18 +425,19 @@ def _k2_splits(b, cap, dev):
     return max(1, min(-(-cap // GROUP), -(-_K2_WAVES * _sms(dev) // q_tiles)))
 
 
-def _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys=None):
+def _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys=None, rows=None):
     """K2 on the card.  ``seg_keys=None``: the main path's candidates over
     the bf16 mirror ``plane`` (one winner per GROUP rows, the queries as
     given, the k best through the epilogue) -> ``(dist [B, k], ids [B,
-    k])``.  Else a pool (:func:`pool_candidates`): one winner per POOL_BIN
-    rows, each segment of ``seg_keys`` keys' k best -> ``(scores, ids)``,
-    each ``[B, segments, k]``."""
+    k])``.  Else a pool (:func:`pool_candidates`) over the live ``rows``:
+    one winner per POOL_BIN rows, each segment of ``seg_keys`` keys' k best
+    -> ``(scores, ids)``, each ``[B, segments, k]``, decoded by the select."""
     pool = seg_keys is not None
     i8 = plane.dtype == torch.int8
     name = "fused_topk_search_v2_int8" if i8 else "fused_topk_search_v2"
     dev = plane.device
     cap = plane.shape[0]
+    rows = cap if rows is None else rows
     if not pool:
         qf = _checked(name, qf, plane, valid, x_sq, metric, mirror=True)
     else:
@@ -456,35 +464,44 @@ def _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys=None):
             raise ValueError(f"{name}: queries on {qf.device}, plane on {dev}")
     b, dims = qf.shape
     n_tiles = -(-cap // GROUP)
-    nk = n_tiles * (_TILE_BINS if pool else 1)
-    seg = seg_keys if pool else nk
-    n_seg = -(-nk // seg)
-    if pool:
-        out, od, oi = torch.empty((b, n_seg, k), dtype=torch.int64, device=dev), None, None
-    else:
-        out = None
-        od = torch.empty((b, k), dtype=torch.float32, device=dev)
-        oi = torch.empty((b, k), dtype=torch.int32, device=dev)
-    if b == 0:
-        return _decode_keys(out) if pool else (od, oi)
+    live_tiles = -(-rows // GROUP)
+    per_tile = _TILE_BINS if pool else 1
+    seg = seg_keys if pool else n_tiles
+    n_seg = -(-n_tiles * per_tile // seg)
+    live_keys = live_tiles * per_tile
+    live_segs = -(-live_keys // seg)
+    shape = (b, n_seg, k) if pool else (b, k)
+    od = torch.empty(shape, dtype=torch.float32, device=dev)
+    oi = torch.empty(shape, dtype=torch.int32, device=dev)
+    if pool and live_segs < n_seg:  # segments past the live rows: empty
+        od[:, live_segs:] = INF
+        oi[:, live_segs:] = -1
+    if b == 0 or live_tiles == 0:
+        return od, oi
     # Scratch: the queries (int8 with their multipliers, or bf16, which the
-    # kernel rounds), each row's bias (and int8 scale), and the [queries,
-    # keys] buffer of as many queries at a time as SCORE_BUFFER_BYTES holds
-    # (and a select grid's y takes), rows of an even count (16-byte rows);
-    # the first select pass's winners when a segment takes several chunks.
+    # kernel rounds), each live row's bias (and int8 scale), and the
+    # [queries, keys] buffer for as many queries at a time as
+    # SCORE_BUFFER_BYTES holds (whole scan blocks of _K2_BQ queries, and at
+    # most a select grid's y), rows of an even count (16-byte rows): the
+    # live tiles' keys, and the second select pass's when a segment takes
+    # three (ehtorch_k2); the first select pass's winners when a segment
+    # takes several chunks.
     if i8:
         q, qs = quantize_queries(qf, metric)
         qb = None
     else:
         q, qs = qf.to(torch.float32).contiguous(), None
         qb = torch.empty((b, plane.shape[1]), dtype=torch.bfloat16, device=dev)
-    bias = torch.empty((n_tiles * GROUP,), dtype=torch.float32, device=dev)
+    bias = torch.empty((live_tiles * GROUP,), dtype=torch.float32, device=dev)
     sc = torch.empty_like(bias) if i8 else None
-    stride = nk + nk % 2
-    group = max(1, min(b, 65535, SCORE_BUFFER_BYTES // (8 * stride)))
-    keys = torch.empty((group, stride), dtype=torch.int64, device=dev)
     parts = -(-seg // _K2_SELECT_CHUNK)
-    part = (torch.empty((group, n_seg * parts * k), dtype=torch.int64, device=dev)
+    stride = max(live_keys, live_segs * -(-parts * k // _K2_SELECT_CHUNK) * k)
+    stride += stride % 2
+    group = max(1, min(b, 65535, SCORE_BUFFER_BYTES // (8 * stride)))
+    if group < b and group >= _K2_BQ:
+        group -= group % _K2_BQ
+    keys = torch.empty((group, stride), dtype=torch.int64, device=dev)
+    part = (torch.empty((group, live_segs * parts * k), dtype=torch.int64, device=dev)
             if parts > 1 else None)
 
     def ptr(t, row=0):
@@ -498,28 +515,15 @@ def _launch_k2(qf, plane, valid, x_sq, scales, k, metric, seg_keys=None):
             err = lib.ehtorch_k2(
                 ptr(q, g0), ptr(qs, g0), valid.data_ptr(), x_sq.data_ptr(), ptr(scales),
                 plane.data_ptr(), ptr(qb), bias.data_ptr(), ptr(sc), keys.data_ptr(),
-                ptr(part), ptr(out, g0), ptr(od, g0), ptr(oi, g0), g, cap, dims,
-                plane.shape[1], q.stride(0) if i8 else 0, plane.stride(0) if i8 else 0,
-                stride, k, seg, POOL_BIN if pool else GROUP, int(metric == "l2"),
+                ptr(part), ptr(od, g0), ptr(oi, g0), g, cap, rows, dims, plane.shape[1],
+                q.stride(0) if i8 else 0, plane.stride(0) if i8 else 0, stride, k, seg,
+                POOL_BIN if pool else GROUP, int(metric == "l2"),
                 int(metric == "cosine" and not pool), int(i8), int(not pool),
-                _k2_splits(g, cap, dev), stream)
+                _k2_splits(g, rows, dev), stream)
             if err != 0:
                 raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     _count(name)
-    return _decode_keys(out) if pool else (od, oi)
-
-
-def _decode_keys(keys: torch.Tensor):
-    """K2's 64-bit keys (k2_scan.cu ``pack``, held in int64) -> (scores
-    f32, ids int32); padding (all ones) and +inf keys give +inf and -1."""
-    u = (keys >> 32) & 0xFFFFFFFF
-    bits = torch.where(u >= (1 << 31), u - (1 << 31), (~u) & 0xFFFFFFFF)
-    scores = torch.where(bits >= (1 << 31), bits - (1 << 32), bits).to(torch.int32)
-    scores = scores.view(torch.float32)
-    ids = keys & 0xFFFFFFFF
-    ids = torch.where(ids >= (1 << 31), ids - (1 << 32), ids).to(torch.int32)
-    fin = torch.isfinite(scores)
-    return torch.where(fin, scores, INF), torch.where(fin, ids, -1)
+    return od, oi
 
 
 _RADIX_BLOCKS_PER_SM = 16  # 128-thread blocks of the radix passes

@@ -208,10 +208,11 @@ def _exact_planes(qf, xq, scales, valid, x_sq, x_lo=None, *, metric, k):
     return best_d, best_i.to(torch.int32)
 
 
-def _phase1(qf, xq, scales, valid, x_sq, metric, kc, seg=None):
-    """K2's pool: ``(scores, ids)`` of ``[B, segments * kc]``."""
+def _phase1(qf, xq, scales, valid, x_sq, metric, kc, seg=None, rows=None):
+    """K2's pool: ``(scores, ids)`` of ``[B, segments * kc]``, scanned up
+    to ``rows`` (every live row lies below it; ``None``: the capacity)."""
     sv, si = fused_topk.pool_candidates(qf, xq, valid, x_sq, scales, k=kc,
-                                        metric=metric, seg=seg)
+                                        metric=metric, seg=seg, rows=rows)
     return sv.reshape(sv.shape[0], -1), si.reshape(si.shape[0], -1)
 
 
@@ -220,17 +221,20 @@ def _bins(rows: int) -> int:
 
 
 def int8_oversample_search(q, xq, scales, valid, x_sq, x_lo=None, *, metric="l2",
-                           k=10, oversample=8):
+                           k=10, oversample=8, rows=None):
     """Quantized search over a whole arena (``ops/topk.py:269`` of the
     reference): K2's int8 pool picks ``k * oversample`` candidates from the
     hi plane ``xq [cap, D]`` int8 (``scales [cap]``), then a rerank of the
     dequantized candidates (``hi + lo/254`` with the residual plane
-    ``x_lo``) keeps the best ``k``."""
+    ``x_lo``) keeps the best ``k``.  ``rows`` (here and in
+    :func:`quantized_chunked_exact`): a bound every live row lies below,
+    the arena's high-water mark, where the pool's scan stops on the card
+    (``None``: the capacity); the result does not depend on it."""
     qf = _unit(q, metric)
     kk = k * oversample
     if not _binned(kk, _bins(xq.shape[0])):
         return _exact_planes(qf, xq, scales, valid, x_sq, x_lo, metric=metric, k=k)
-    _, cand = _phase1(qf, xq, scales, valid, x_sq, metric, kk)
+    _, cand = _phase1(qf, xq, scales, valid, x_sq, metric, kk, rows=rows)
     return _best(qf, _rerank(qf, xq, scales, x_sq, x_lo, cand, metric), cand, k, metric)
 
 
@@ -282,7 +286,8 @@ def quantized_chunked_ids(q, xq, scales, valid, x_sq, *, metric="l2", k=10,
 
 
 def quantized_chunked_exact(q, xq, scales, valid, x_sq, x_lo=None, *, metric="l2",
-                            k=10, oversample=8, chunk=1 << 20, pool_budget=1 << 17):
+                            k=10, oversample=8, chunk=1 << 20, pool_budget=1 << 17,
+                            rows=None):
     """The flat engine's search past 2M rows (``ops/topk.py:628``): K2's
     pool takes ``kc = min(kk, max(k, pool_budget // n_chunks), chunk)``
     candidates from every chunk of ``chunk`` rows in one scan (a select per
@@ -298,7 +303,7 @@ def quantized_chunked_exact(q, xq, scales, valid, x_sq, x_lo=None, *, metric="l2
     kc = min(kk, max(k, pool_budget // n_chunks), chunk)
     if not _binned(kc, _bins(chunk)) or chunk % fused_topk.GROUP:
         return _exact_planes(qf, xq, scales, valid, x_sq, x_lo, metric=metric, k=k)
-    _, cand = _phase1(qf, xq, scales, valid, x_sq, metric, kc, seg=chunk)
+    _, cand = _phase1(qf, xq, scales, valid, x_sq, metric, kc, seg=chunk, rows=rows)
     return _best(qf, _rerank(qf, xq, scales, x_sq, x_lo, cand, metric), cand, k, metric)
 
 

@@ -45,6 +45,7 @@ from embeddinghub_tpu_torch.index.base import Index, as_f32_matrix, next_pow2
 from embeddinghub_tpu_torch.index.flat import (
     _adoptable,
     _bucket,
+    _high_water_of,
     _i8_plane,
     apply_quant_guard,
     quantize_planes,
@@ -145,6 +146,7 @@ class ShardedFlatIndex(Index):
         self._hx = np.zeros((self.total_capacity, self.dims), dtype=np.float32)
         self._hvalid = np.zeros((self.total_capacity,), dtype=bool)
         self._size = 0
+        self._high_water = 0  # host rows at or past it were never written
         # per shard: "x" (f32 arena or int8 hi plane), "sc" (row scales),
         # "lo" (residual plane), "sq", "valid"; None until the first sync
         self._shards: list[dict] | None = None
@@ -173,7 +175,9 @@ class ShardedFlatIndex(Index):
             raise ValueError("rows / vecs length mismatch")
         if rows.size == 0:
             return
-        self._ensure_capacity(int(rows.max()) + 1)
+        top = int(rows.max()) + 1
+        self._ensure_capacity(top)
+        self._high_water = max(self._high_water, top)
         newly = ~self._hvalid[rows]
         self._size += int(np.count_nonzero(newly))
         self._hx[rows] = vecs
@@ -285,9 +289,15 @@ class ShardedFlatIndex(Index):
 
     # ----------------------------------------------------------------- search
 
-    def _local_search(self, st: dict, q: torch.Tensor, kk: int):
+    def _local_rows(self, s: int) -> int:
+        """Shard ``s``'s high-water mark in local rows: host row ``r`` is
+        local row ``r // S`` of shard ``r % S``."""
+        return max(0, -(-(self._high_water - s) // self.n_shards))
+
+    def _local_search(self, st: dict, q: torch.Tensor, kk: int, rows: int):
         """One shard's ``(dist, ids)`` ``[B, kk]``, local ids: the
-        reference's ``_build_search`` routing."""
+        reference's ``_build_search`` routing; ``rows``: the shard's
+        high-water mark (:meth:`_local_rows`), where its pool stops."""
         capl = self._cap_local
         if self.storage_dtype not in _INT8:
             return topk_ops.chunked_topk_search(
@@ -298,9 +308,9 @@ class ShardedFlatIndex(Index):
         if capl > _DEEP_CAP_THRESHOLD:
             return topk_ops.quantized_chunked_exact(
                 *args, metric=self.metric, k=kk, oversample=over,
-                chunk=min(capl, _DEEP_CHUNK))
+                chunk=min(capl, _DEEP_CHUNK), rows=rows)
         return topk_ops.int8_oversample_search(*args, metric=self.metric, k=kk,
-                                               oversample=over)
+                                               oversample=over, rows=rows)
 
     def search_device(self, q: np.ndarray, kk: int, width: int | None = None):
         """The sharded search of prepared queries ``q [pb, D]``
@@ -308,8 +318,8 @@ class ShardedFlatIndex(Index):
         ``width`` columns (``kk`` when ``None``): device ``(dist, ids)`` on
         the first device, ids host rows."""
         self._sync()
-        return merge_lists([self._local_search(st, qd, kk)
-                            for st, qd in zip(self._shards, self.mesh.put(q))],
+        return merge_lists([self._local_search(st, qd, kk, self._local_rows(s))
+                            for s, (st, qd) in enumerate(zip(self._shards, self.mesh.put(q)))],
                            self.mesh.devices[0], kk, width)
 
     def search(self, queries: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -367,5 +377,6 @@ class ShardedFlatIndex(Index):
         else:
             idx._hvalid[:n] = valid
         idx._size = int(np.count_nonzero(idx._hvalid))
+        idx._high_water = _high_water_of(idx._hvalid)
         idx._dirty = True
         return idx

@@ -203,17 +203,30 @@ def test_plain_bf16_pool_keeps_k2_scores(metric):
 
 
 def test_pool_decodes_kernel_keys():
-    """The wrapper's decoding of K2's 64-bit keys (k2_scan.cu ``pack``):
-    scores and rows back, padding and +inf keys as empty slots."""
-    def pack(s, row):
-        u = np.float32(s).view(np.uint32)
-        u = ~u if u & 0x80000000 else u | 0x80000000
-        return int((np.uint64(u) << np.uint64(32)) | np.uint64(row))
-    keys = [pack(-2.5, 7), pack(0.0, 3), pack(3e4, 1 << 30), pack(np.inf, 9), (1 << 64) - 1]
-    t = torch.tensor([[k - (1 << 64) if k >= (1 << 63) else k for k in keys]])
-    s, i = F._decode_keys(t)
-    assert s.tolist() == [[-2.5, 0.0, 3e4, float("inf"), float("inf")]]
-    assert i.tolist() == [[7, 3, 1 << 30, -1, -1]]
+    """The pool's slots as K2's select decodes its 64-bit keys (k2_scan.cu
+    ``pack``, ``TO_DECODE``), here in the plain pool: each segment's (score,
+    row) ascending by score, then row; a bin with no live row and the
+    padding past a segment's bins as empty slots (+inf, -1).  The kernel's
+    own decode is held to the plain pool by
+    ``test_card_pool_decodes_empty_bins``."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((640, 8)).astype(np.float32)
+    x[3] = x[1]  # a tie in score, broken by the lower row
+    valid = np.ones(640, bool)
+    valid[256:] = False  # the third segment holds no live row
+    valid[128:256:2] = False
+    hi, sc, _, sq = planes(x, "l2", "int8")
+    qf = torch.from_numpy(x[1:2].copy())
+    s, i = F.pool_candidates(qf, torch.from_numpy(hi), torch.from_numpy(valid),
+                             torch.from_numpy(sq), torch.from_numpy(sc), k=12, metric="l2",
+                             seg=128)
+    assert s.shape == i.shape == (1, 5, 12)
+    fin = torch.isfinite(s)  # a segment of 128 rows holds 4 bins
+    assert fin[0, :2, :4].all() and not fin[0, :2, 4:].any() and not fin[0, 2:].any()
+    assert (i[~fin] == -1).all()
+    assert (torch.diff(s[0, :2, :4], dim=1) >= 0).all()
+    assert i[0, 0, :2].tolist() == [1, 3] and s[0, 0, 0] == s[0, 0, 1]  # a tie: lower row first
+    assert valid[i[fin].numpy()].all()
 
 
 # ------------------------------------------------- the searches against JAX
@@ -736,16 +749,24 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _card_pool_against_plain(i8, metric, b, cap, dims, k, seg, dead=0.0):
+def _card_pool_against_plain(i8, metric, b, cap, dims, k, seg, dead=0.0, rows=None,
+                             empty_bins=False):
     """K2's pool on the card against its plain version on the same card
     inputs: the same ids and scores except between tied scores (int8: exact
     integer sums, the same order of operations; bf16: f32 sums in another
-    order, ties 1e-3 wide)."""
+    order, ties 1e-3 wide).  ``rows``: the kernel scans only the live
+    prefix below it (the rows past it dead, as never written; with none
+    live it launches nothing), the plain version the whole arena.
+    ``empty_bins``: every tile's second bin (rows 8j + 2 + h) dead."""
     dev = _cuda()
     g = torch.Generator(device="cpu").manual_seed(cap + b + k)
     x = torch.randn(cap, dims, generator=g) * (1 + 3 * torch.rand(cap, 1, generator=g))
     q = torch.randn(b, dims, generator=g)
     valid = torch.rand(cap, generator=g) >= dead
+    if rows is not None:
+        valid[rows:] = False
+    if empty_bins:
+        valid &= torch.arange(cap) % 8 // 2 != 1
     qf = D.normalize(q) if metric == "cosine" else q
     if i8:
         p = tflat.quantize_planes(x, metric, "int8")
@@ -756,8 +777,8 @@ def _card_pool_against_plain(i8, metric, b, cap, dims, k, seg, dead=0.0):
     args = (qf.to(dev), plane, valid.to(dev), p["sq"].to(dev), sc)
     name = "fused_topk_search_v2_int8" if i8 else "fused_topk_search_v2"
     before = F.LAUNCHES[name]
-    s, i = F.pool_candidates(*args, k=k, metric=metric, seg=seg)
-    assert F.LAUNCHES[name] == before + 1
+    s, i = F.pool_candidates(*args, k=k, metric=metric, seg=seg, rows=rows)
+    assert F.LAUNCHES[name] == before + (rows != 0)
     rs, ri = F.pool_candidates_reference(*args, k=k, metric=metric, seg=seg)
     torch.cuda.synchronize()
     s, i, rs, ri = (t.cpu() for t in (s, i, rs, ri))
@@ -806,6 +827,50 @@ def test_card_int8_pool_widths(dims):
 @pytest.mark.parametrize("cap,seg,k", [(50_001, None, 80), (262_144, 65_536, 256)])
 def test_card_bf16_pool_matches_plain(metric, cap, seg, k):
     _card_pool_against_plain(False, metric, 300, cap, 96, k, seg, dead=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [96, 128, 200])
+@pytest.mark.parametrize("b", [1, 8, 64, 65, 4096])
+def test_card_int8_pool_live_prefix(b, dims):
+    """The int8 pool over a live prefix of 30,001 of 65,536 rows: it ends
+    mid-tile and mid-segment (segments of 8,192 rows), four segments lie
+    wholly past it, and a tenth of the rows below it are dead; one box
+    (D = 96, 128) and two (D = 200) a tile."""
+    _card_pool_against_plain(True, "l2", b, 65_536, dims, 64, 8192, dead=0.1, rows=30_001)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 127, 4_736, 30_001, 65_472])
+@pytest.mark.parametrize("i8", [True, False])
+def test_card_pool_live_rows(i8, rows):
+    """Both pools at live prefixes of none, part of one tile, 37 tiles (on
+    a tile's end, an odd count and not a multiple of the four tiles whose
+    keys one TMA store writes), mid-segment and mid-way through the last
+    tile, at B = 300 and 75 segments' worth of splits."""
+    _card_pool_against_plain(i8, "cosine", 300, 65_536, 96, 80, 8192, dead=0.1, rows=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 30_001])
+@pytest.mark.parametrize("i8", [True, False])
+def test_card_pool_decodes_empty_bins(i8, rows):
+    """The select's decode of a bin with no live row (a +inf key with a
+    row) and of padding past a segment's bins: segments of 1,024 rows hold
+    32 bins, 8 of them empty, and k = 40 takes all of them, so a wholly
+    live segment's slots are 24 candidates, then 16 empty (+inf, -1)."""
+    _card_pool_against_plain(i8, "l2", 65, 65_536, 96, 40, 1024, rows=rows, empty_bins=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2400, 4096])
+@pytest.mark.parametrize("i8", [True, False])
+def test_card_pool_three_select_passes(i8, k):
+    """A capacity of 2**20 rows, 100,000 of them live, one segment: the
+    select takes three passes (4 chunks, then 2, then 1), and the second
+    writes more keys a query (4,800 or 8,192) than the live tiles have
+    (3,128), into the key buffer sized for both."""
+    _card_pool_against_plain(i8, "l2", 64, 1 << 20, 96, k, None, rows=100_000)
 
 
 @pytest.mark.cuda
