@@ -59,7 +59,9 @@ Phases, each of which must pass or the script exits non-zero:
    B=4096, k=256 (bf16 operands) over the same; its wave pool at B=1,024,
    k=200 over the 251,024-row live prefix; and K2's int8 pool at B=1,024
    and B=8 over 16 segments of 2**18 rows of which 2,500,000 (and the
-   streamed rows) are live.
+   streamed rows) are live.  Phase 13's shape is a case too: K2 at B=1,
+   k=128, cosine over the first 262,144 of the 1M rows (capacity 262,144),
+   reported as an entry of its own.
 3. Main path in process, at SIFT-1M scale: EmbeddingHub on "cuda" ->
    create_space(128, cosine) -> Version.multiset of 1,000,000 keyed rows in
    4096-row batches -> nearest_batch of 4096 queries at k=10 under
@@ -193,16 +195,36 @@ Phases, each of which must pass or the script exits non-zero:
    and a reopen onto the mesh: the same lists.  A [sharded] line prints a
    JSON object of shards, rows a shard, ms, recall and the guard's dtype
    and recall.
+13. The feature store's vector serving path (embeddinghub_tpu_torch.
+   featurestore), in process: a port ff.Client applies a sqlite offline
+   store, the engine vector store on "cuda", an entity, primary data of
+   the first 262,144 of phase 3's rows ({"key": "e<i>", "vec": [...]})
+   and an embedding feature of 128 dims -> every resource READY, the
+   vector space "vector__emb__default" on the card with 262,144 rows; the
+   seconds of the apply, of the sqlite registration, of the
+   materialization and of the copy into the engine -> 8 warm-up calls,
+   then 256 single client.nearest(..., 10) calls (128 stored rows with
+   noise 0.05 * N(0, 1), 128 fresh Gaussian vectors; seed SEED + 13): each
+   call's keys equal Version.nearest_batch's for the same vector,
+   recall@10 >= 0.99 against the exact oracle on the card, top-1 the
+   source row for >= 99 % of the copies; p50 and p99 ms a call, the
+   median CUDA-event ms a call and K2's launches a call -> 4 calls, then
+   16 each in tracing.annotate("ff.nearest"), under tracing.profile: the
+   Chrome trace must hold 16 ff.nearest ranges and at least 16 launches
+   each of k2_scan_kernel and k2_select_kernel; their device us a launch,
+   every kernel's us a call, and the device's idle share over an
+   untraced call.
 
 The launch counters are zeroed just before each path (main: phases 3-4;
 restore: 5; offline: 7; graph: 8; writes: 9; cluster: 10; quantized: 11;
-sharded: 12) and read just after it; the crash
+sharded: 12; featurestore: 13) and read just after it; the crash
 path's (6) are those its restarted server process reports.  Each path must
 have launched the kernels it runs.  The second-to-last line is a JSON
 summary of the kernels, an entry per summary case: "launches" is the main
 path's count (the graph path's for the build's pool cases, the writes
 path's for the waves', the cluster path's for the cluster-routed build's,
-the quantized path's for the pools, the sharded path's for its shapes),
+the quantized path's for the pools, the sharded path's for its shapes,
+the featurestore path's for phase 13's shape),
 "paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
 numpy with a fixed seed.
 """
@@ -243,7 +265,7 @@ GRAPH_POOL_B, GRAPH_POOL_K = 4096, 256  # the build's layer-0 pools
 # of 4M = 64.
 UPPER_CAP, UPPER_ROWS, UPPER_K = 1 << 16, 62_165, 64
 FLUSH = 4096  # the server's MultiSet flush size
-CARD = "cuda"  # the device of phases 8 and 9
+CARD = "cuda"  # the device of phases 8, 9 and 13
 # Phase 9, writes into the phase-8 graph: 24 in-process multisets of FLUSH
 # rows, 5 wire flushes, 10,000 deletes, a refine of 8,192 rows, one more
 # wave after a save.  Each multiset of FLUSH rows is one wave.
@@ -320,6 +342,18 @@ SHARD_DEEP_CHUNK = 1 << 18  # parallel/sharded_flat._DEEP_CHUNK
 SHARD_STREAMS, SHARD_SELF = 4, 64
 SHARD_GRAPH_WAVES = 2
 SHARD_WAVE_B = FLUSH // SHARDS
+# Phase 13, the feature store's vector serving path: phase 3's first FS_ROWS
+# rows (keys e0...) as an embedding feature of a sqlite source, materialized
+# into the engine vector store on the card (capacity FS_ROWS, past
+# FlatIndex's 65,536-row approximate threshold: K2 and the f32 rerank, a
+# pool of 10 -> 16 * 8 = 128 groups), then FS_QUERIES single nearest calls
+# after FS_WARM warm-ups: FS_NEAR noisy copies of stored rows and fresh
+# Gaussian vectors; FS_TRACED of them under tracing.profile.  1M rows would
+# add minutes of JSON encoding in the sqlite store.
+FS_ROWS = 1 << 18
+FS_K, FS_WARM, FS_QUERIES, FS_NEAR, FS_NOISE, FS_TRACED = 10, 8, 256, 128, 0.05, 16
+FS_TRACE_WARM = 4
+FS_RECALL, FS_TOP1 = 0.99, 0.99
 # (kernel, metric, B, k, exact, capacity, live rows) compared with its plain
 # version, at every shape a path gives it; exact is K1's operand precision
 # (None for K2, which is always bf16).
@@ -345,6 +379,7 @@ KERNEL_CASES = (
     ("fused_topk_search_v2", "cosine", 1024, 128, None, CAP, ROWS),
     ("fused_topk_search_v2", "cosine", MAIN_B, 128, None, CAP, ROWS),   # main, restore
     ("fused_topk_search_v2", "cosine", 1, 128, None, CAP, ROWS),        # main
+    ("fused_topk_search_v2", "cosine", 1, 128, None, FS_ROWS, FS_ROWS),  # featurestore
     ("fused_topk_search_v2", "l2", WIRE_B, 128, None, WIRE_CAP, WIRE_ROWS),     # wire
     ("fused_topk_search_v2", "l2", 1, 128, None, WIRE_CAP, WIRE_ROWS),          # wire
     ("fused_topk_search_v2", "cosine", OFFLINE_B, 128, None, WIRE_CAP, OFFLINE_ROWS),  # offline
@@ -409,6 +444,7 @@ LIBRARY_CHUNK_BYTES = 1 << 30  # one [B, chunk] product of library_ms at most
 SUMMARY = {
     ("cosine", MAIN_B, 16, True, CAP): ("fused_topk_search", "main"),
     ("cosine", MAIN_B, 128, None, CAP): ("fused_topk_search_v2", "main"),
+    ("cosine", 1, 128, None, FS_ROWS): ("fused_topk_search_v2", "featurestore"),
     ("cosine", BIG_B, BIG_K, True, CAP): ("fused_topk_search_large_k", "main"),
     ("l2", GRAPH_POOL_B, GRAPH_POOL_K, False, CAP): ("fused_topk_search", "graph pool"),
     ("l2", GRAPH_POOL_B, UPPER_K, False, UPPER_CAP): ("fused_topk_search",
@@ -429,7 +465,8 @@ CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "g
              "routed pool": "cluster", "boundary repair pool": "cluster",
              "int8 pool": "quantized", "deep int8 pool": "quantized",
              "deep bf16 pool": "quantized", "sharded": "sharded",
-             "sharded graph pool": "sharded", "sharded deep int8 pool": "sharded"}
+             "sharded graph pool": "sharded", "sharded deep int8 pool": "sharded",
+             "featurestore": "featurestore"}
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
 
@@ -2252,6 +2289,174 @@ def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
     print(f"[sharded] {json.dumps(line)}", flush=True)
 
 
+def trace_events(log_dir: str) -> list:
+    """The events of the one Chrome trace ``tracing.profile`` wrote."""
+    import glob
+
+    paths = glob.glob(os.path.join(log_dir, "*.json"))
+    check(len(paths) == 1, f"tracing.profile wrote {paths}, not one trace")
+    with open(paths[0]) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    check(len(events) > 0, "the profiler trace is empty")
+    return events
+
+
+def phase_featurestore(torch, x_host, launches):
+    """Phase 13: the feature store's definitions applied by a port
+    ``ff.Client`` in process, the embedding feature materialized into the
+    engine vector store on the card, then single ``nearest`` calls."""
+    import embeddinghub_tpu_torch.featurestore as ff
+    from embeddinghub_tpu_torch.featurestore.providers import engine_vector
+    from embeddinghub_tpu_torch.featurestore.providers.base import reset_provider_cache
+    from embeddinghub_tpu_torch.featurestore.providers.sqlite_offline import (
+        SqliteOfflineStore,
+    )
+    from embeddinghub_tpu_torch.featurestore.resources import Status
+    from embeddinghub_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    x = x_host[:FS_ROWS]
+    rows = [{"key": f"e{i}", "vec": v} for i, v in enumerate(x.tolist())]
+    # the apply's parts, timed where the coordinator's tasks call them
+    spent = {"register": 0.0, "materialize": 0.0, "copy": 0.0}
+    timed = ((SqliteOfflineStore, "register_primary", "register"),
+             (SqliteOfflineStore, "materialize", "materialize"),
+             (engine_vector._LocalVectorTable, "batch_set", "copy"))
+    originals = [(cls, attr, getattr(cls, attr)) for cls, attr, _ in timed]
+
+    def timer(fn, part):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[part] += time.perf_counter() - t0
+        return run
+
+    reset_provider_cache()
+    ff.global_registrar().reset()
+    client = ff.Client()
+    reg = client.registrar
+    reg.register_sqlite_offline("warehouse")
+    reg.register_engine_vector_store("vectors", device=CARD)
+    reg.register_entity("item")
+    reg.register_primary_data("items", provider="warehouse", location={"rows": rows})
+    reg.register_embedding_feature(
+        "emb", source=("items", "default"), entity="item", entity_column="key",
+        value_column="vec", dims=DIMS, provider="vectors")
+    for cls, attr, part in timed:
+        setattr(cls, attr, timer(getattr(cls, attr), part))
+    try:
+        t0 = time.perf_counter()
+        client.apply()
+        apply_s = time.perf_counter() - t0
+    finally:
+        for cls, attr, fn in originals:
+            setattr(cls, attr, fn)
+    del rows
+    states = {(r.rtype.name, r.name): r.status for r in client.metadata.all()}
+    check(all(s == Status.READY for s in states.values()), f"not all READY: {states}")
+    hub = client.coordinator.provider_for("vectors")._hub
+    version = hub.get_space("vector__emb__default").default_version()
+    index = version.index
+    check(version.size == FS_ROWS and index.capacity == FS_ROWS
+          and index.device.type == "cuda",
+          f"vector space: {version.size} rows, capacity {index.capacity} on {index.device}")
+    print(f"[featurestore] apply of {FS_ROWS} x {DIMS} rows: {apply_s:.2f} s (register "
+          f"{spent['register']:.2f} s, materialize {spent['materialize']:.2f} s, copy "
+          f"into the engine {spent['copy']:.2f} s); {len(states)} resources READY, the "
+          f"vector space on {index.device} with {version.size} rows", flush=True)
+
+    rng = np.random.default_rng(SEED + 13)
+    src = rng.choice(FS_ROWS, FS_NEAR, replace=False)
+    queries = np.concatenate([
+        x[src] + FS_NOISE * rng.standard_normal((FS_NEAR, DIMS), dtype=np.float32),
+        rng.standard_normal((FS_QUERIES - FS_NEAR, DIMS), dtype=np.float32)])
+
+    def nearest(q):
+        return client.nearest("emb", "default", q, FS_K)
+
+    for q in queries[:FS_WARM]:
+        nearest(q)
+    before = launches.get("fused_topk_search_v2", 0)
+    walls, events, got = [], [], []
+    for q in queries:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        got.append(nearest(q))
+        end.record()
+        walls.append(time.perf_counter() - t0)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    per_call = (launches.get("fused_topk_search_v2", 0) - before) / FS_QUERIES
+    check(per_call >= 1, f"K2 launched {per_call} times a nearest call")
+    event_ms = [s.elapsed_time(e) for s, e in events]
+    walls_ms = np.array(walls) * 1e3
+    for q, keys in zip(queries, got):
+        check(keys == version.nearest_batch(q[None], FS_K)[0],
+              "the feature store's nearest keys differ from nearest_batch's")
+    x_dev = torch.from_numpy(x).cuda()
+    _, oi = exact_oracle(torch, x_dev, torch.from_numpy(queries).cuda(), FS_K)
+    del x_dev
+    check(all(len(keys) == FS_K for keys in got), "short nearest results")
+    ids = np.array([[int(k[1:]) for k in keys] for keys in got])
+    recall = recall_at(ids, oi.cpu().numpy())
+    top1 = float(np.mean([ids[j][0] == int(src[j]) for j in range(FS_NEAR)]))
+    print(f"[featurestore] {FS_QUERIES} nearest calls at k={FS_K} ({FS_NEAR} noisy "
+          f"copies, {FS_QUERIES - FS_NEAR} fresh): p50 {np.percentile(walls_ms, 50):.3f} "
+          f"ms, p99 {np.percentile(walls_ms, 99):.3f} ms a call; CUDA events "
+          f"{statistics.median(event_ms):.3f} ms (median); K2 launches a call "
+          f"{per_call:g}; keys equal nearest_batch's; recall@{FS_K} {recall:.5f}; "
+          f"top-1 the source row {top1:.4f}", flush=True)
+    check(recall >= FS_RECALL, f"featurestore recall@{FS_K} {recall} < {FS_RECALL}")
+    check(top1 >= FS_TOP1, f"featurestore top-1 {top1} < {FS_TOP1}")
+
+    # the profiler can lose a kernel's activity record (one run's trace held
+    # 15 of 16 K2 scans): FS_TRACE_WARM more calls in the window leave room
+    # for such losses in the launch counts checked below
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        with tracing.profile(tmp):
+            for q in queries[FS_TRACED:FS_TRACED + FS_TRACE_WARM]:
+                nearest(q)
+            for q in queries[:FS_TRACED]:
+                with tracing.annotate("ff.nearest"):
+                    nearest(q)
+        trace = trace_events(tmp)
+    ranges = [e for e in trace if e.get("name") == "ff.nearest"
+              and e.get("cat") == "user_annotation"]
+    range_us = sum(e.get("dur", 0.0) for e in ranges)
+    kernels = {"k2_scan_kernel": [], "k2_select_kernel": []}
+    busy_us = 0.0
+    for e in trace:
+        if e.get("cat") != "kernel":
+            continue
+        busy_us += e.get("dur", 0.0)
+        for name in kernels:
+            if name in e.get("name", ""):
+                kernels[name].append(e.get("dur", 0.0))
+    calls = FS_TRACED + FS_TRACE_WARM
+    print(f"[featurestore] trace of {calls} calls, {FS_TRACED} annotated: {len(ranges)} "
+          f"ff.nearest ranges; device us a launch: " + ", ".join(
+              f"{n} {sum(d) / max(len(d), 1):.1f} ({len(d)} launches)"
+              for n, d in kernels.items())
+          + f"; every kernel {busy_us / calls:.1f} us a call; the annotated calls' range "
+          f"{range_us / FS_TRACED:.1f} us (the profiler's host cost included); "
+          f"untraced, CUDA events {statistics.median(event_ms) * 1e3:.1f} us a call "
+          f"(idle share {1 - busy_us / calls / 1e3 / statistics.median(event_ms):.3f})",
+          flush=True)
+    check(len(ranges) == FS_TRACED, f"{len(ranges)} ff.nearest ranges, not {FS_TRACED}")
+    for name, durs in kernels.items():
+        check(len(durs) >= FS_TRACED, f"the trace names {name} {len(durs)} times")
+    del client, hub, version, index
+    reset_provider_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[featurestore] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 REPLACES = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
             "fused_topk_search_v2": "embeddinghub_tpu/ops/pallas_topk.py:270",
             "fused_topk_search_large_k": "embeddinghub_tpu/ops/pallas_topk.py:124"}
@@ -2334,6 +2539,7 @@ def main() -> int:
              "cluster": ("fused_topk_search", "fused_topk_search_large_k"),
              "quantized": ("fused_topk_search_v2_int8", "fused_topk_search_v2"),
              "sharded": ("fused_topk_search", "fused_topk_search_v2_int8"),
+             "featurestore": ("fused_topk_search_v2",),
              "crash": ("fused_topk_search",)}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
                       ("offline", lambda: phase_offline(torch, x_host))):
@@ -2369,6 +2575,11 @@ def main() -> int:
         phase_sharded(torch, x_host, F.LAUNCHES, deep, graph_rows, Path(tmp))
         paths["sharded"] = dict(F.LAUNCHES)
     del deep, graph_rows
+    # the feature store's vector path: ff.Client -> materialization -> the
+    # engine vector store -> nearest (phase 13)
+    F.reset_launches()
+    phase_featurestore(torch, x_host, F.LAUNCHES)
+    paths["featurestore"] = dict(F.LAUNCHES)
     # the crash path's kernels run in the server subprocess, which reports them
     crash = phase_crash(torch, x_host)
     if crash is not None:

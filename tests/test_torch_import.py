@@ -4,11 +4,14 @@
 The import check runs in a subprocess because ``tests/conftest.py`` imports
 jax and the JAX package into every test process.  A second check reads the
 import statements of every source file of the port and of
-``chip_smoke.py``, which import inside functions too.
+``chip_smoke.py``, which import inside functions too; a third reads their
+string constants, where a module name reaches ``python -m`` or an import
+by name (``importlib``) without an import statement.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -57,6 +60,29 @@ def _forbidden(name: str) -> bool:
     "embeddinghub_tpu_torch.parallel",
     "embeddinghub_tpu_torch.parallel.mesh, embeddinghub_tpu_torch.parallel.sharded_flat, "
     "embeddinghub_tpu_torch.parallel.sharded_hnsw, embeddinghub_tpu_torch.parallel.dryrun",
+    "embeddinghub_tpu_torch.utils.tracing",
+    "embeddinghub_tpu_torch.featurestore",
+    "embeddinghub_tpu_torch.featurestore.fferr, embeddinghub_tpu_torch.featurestore.logging, "
+    "embeddinghub_tpu_torch.featurestore.feature_flag, "
+    "embeddinghub_tpu_torch.featurestore.variant_names, "
+    "embeddinghub_tpu_torch.featurestore.resources, embeddinghub_tpu_torch.featurestore.ffsync, "
+    "embeddinghub_tpu_torch.featurestore.scheduling, "
+    "embeddinghub_tpu_torch.featurestore.notifications, "
+    "embeddinghub_tpu_torch.featurestore.status_display, "
+    "embeddinghub_tpu_torch.featurestore.metadata, embeddinghub_tpu_torch.featurestore.search",
+    "embeddinghub_tpu_torch.featurestore.providers, "
+    "embeddinghub_tpu_torch.featurestore.providers.base, "
+    "embeddinghub_tpu_torch.featurestore.providers.memory_online, "
+    "embeddinghub_tpu_torch.featurestore.providers.sqlite_offline, "
+    "embeddinghub_tpu_torch.featurestore.providers.sqlite_online, "
+    "embeddinghub_tpu_torch.featurestore.providers.pandas_offline, "
+    "embeddinghub_tpu_torch.featurestore.providers.redis_online, "
+    "embeddinghub_tpu_torch.featurestore.providers.engine_vector",
+    "embeddinghub_tpu_torch.featurestore.transform_engine, "
+    "embeddinghub_tpu_torch.featurestore.transform_worker, "
+    "embeddinghub_tpu_torch.featurestore.coordinator, embeddinghub_tpu_torch.featurestore.serving, "
+    "embeddinghub_tpu_torch.featurestore.registry, embeddinghub_tpu_torch.featurestore.class_api, "
+    "embeddinghub_tpu_torch.featurestore.executor_credentials",
 ])
 def test_port_imports_no_jax(mods):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -95,3 +121,49 @@ def test_no_import_statement_names_the_jax_package(path):
             if _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+# a dotted name under the JAX package, as ``-m`` or ``importlib`` take it
+_MODULE_NAME = re.compile(r"(?<![\w.])embeddinghub_tpu(?:\.[A-Za-z_]\w*)+")
+
+
+def _docstrings(tree):
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                out.add(id(first.value))
+    return out
+
+
+def _module_names_in_strings(path):
+    """``(line, name)`` of every dotted name under the JAX package that a
+    string constant of the file holds, docstrings aside."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = _docstrings(tree)
+    return [(node.lineno, name) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs
+            for name in _MODULE_NAME.findall(node.value)]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_string_names_a_jax_package_module(path):
+    """No string constant names a module of the JAX package (a ``-m``
+    target of a subprocess, a name for ``importlib``)."""
+    bad = _module_names_in_strings(path)
+    assert not bad, f"{path.name} names {bad}"
+
+
+def test_string_check_sees_a_module_target():
+    """The check flags the JAX package's own worker target, and not the
+    port's."""
+    ref = Path(REPO) / "embeddinghub_tpu" / "featurestore" / "transform_engine.py"
+    assert [n for _, n in _module_names_in_strings(ref)] == [
+        "embeddinghub_tpu.featurestore.transform_worker"]
+    port = Path(REPO) / "embeddinghub_tpu_torch" / "featurestore" / "transform_engine.py"
+    assert "embeddinghub_tpu_torch.featurestore.transform_worker" in port.read_text()
+    assert _module_names_in_strings(port) == []
