@@ -75,8 +75,7 @@ Phases, each of which must pass or the script exits non-zero:
    (a 2048-wide fetch: K1's large-k route), BatchNearestNeighbor of 1024
    queries and Get must equal the in-process store's answers; Set after
    FreezeSpace fails with FAILED_PRECONDITION, NearestNeighbor with key and
-   embedding with INVALID_ARGUMENT.  Skipped, with the reason printed, when
-   grpc is not installed.
+   embedding with INVALID_ARGUMENT.  Without grpc the script fails here.
 5. Restore, 1M x 128 cosine, in a temporary data directory removed at the
    end: EmbeddingHub.load_or_create(dir, "cuda") -> multiset of 1,000,000
    rows in 4096-row batches with the WAL on (rows/s, WAL bytes) -> delete
@@ -92,8 +91,7 @@ Phases, each of which must pass or the script exits non-zero:
    same directory: every acknowledged row comes back bit-exact (MultiGet),
    Download holds at least 20,000 rows, NearestNeighbor by key excludes the
    key; on SIGTERM the server prints its kernel launches.  Every wait on
-   the subprocess is bounded (service/spawn.py).  Skipped, with the reason
-   printed, when grpc is not installed.
+   the subprocess is bounded (service/spawn.py).
 7. Offline: the port's sdk.offline.Index on "cuda" over the first 100,000
    rows answers nearest_neighbor_batch and a keyed nearest_neighbor as a
    Version over the same rows does, at recall@10 >= 0.99 against the
@@ -121,7 +119,7 @@ Phases, each of which must pass or the script exits non-zero:
    reciprocal commits, device-state rebuild, host, the rollback copies)
    and the capacity-growth
    wave (2**20 -> 2**21 rows) apart -> a raw-stub MultiSet of 20,480 rows
-   over the wire (5 flushes, 5 waves; by multiset without grpc) ->
+   over the wire (5 flushes, 5 waves) ->
    recall@10 at ef 50/100/200 against an exact K1 oracle over every live
    row (ef=100 must reach 0.95) and a self-check (1,024 inserted rows
    find themselves in their top 10 at ef=100 at a rate of 0.99 or more)
@@ -214,17 +212,41 @@ Phases, each of which must pass or the script exits non-zero:
    each of k2_scan_kernel and k2_select_kernel; their device us a launch,
    every kernel's us a call, and the device's idle share over an
    untraced call.
+14. The composer, over the wire: phase 13's rows in a .npy file and a
+   definitions file that loads them and registers phase 13's resources
+   (the engine vector store on its default "cuda") ->
+   MALLOC_ARENA_MAX=1 python -m embeddinghub_tpu_torch.main --defs ... on
+   free ports (the store, serving and metadata gRPC servers, the
+   dashboard, the coordinator's poll loop; service/spawn.ComposerProcess,
+   bounded waits)
+   -> seconds to its "up" line, then to every resource READY, polled over
+   its metadata gRPC (the compact service for the providers, the entity
+   and the feature; the typed ff_metadata service for the source, whose
+   compact blob carries the inline rows) -> 8 warm-ups and phase 13's 256
+   queries as single RemoteServingClient.nearest(..., 10) calls: every key
+   list equal to phase 13's in-process one, recall@10 >= 0.99 against
+   phase 13's oracle, p50 and p99 ms a call -> the same 256 calls from 8
+   client threads, a channel each, 32 calls each: every answer equal to
+   the single client's, calls/s and p99 -> the store surface through the
+   port's EmbeddingHubClient (a space of 4,096 rows: multiset, get
+   bit-exact, a keyed nearest_neighbor without the key, its l2 distances
+   those of an exact f64 oracle; phase 2 holds K1 at this shape too) ->
+   the dashboard's
+   /data/features lists emb -> SIGTERM: the composer stops, exits 0 and
+   reports its kernel launches (K2 at least once a Nearest call, and K1).
 
-The launch counters are zeroed just before each path (main: phases 3-4;
-restore: 5; offline: 7; graph: 8; writes: 9; cluster: 10; quantized: 11;
-sharded: 12; featurestore: 13) and read just after it; the crash
-path's (6) are those its restarted server process reports.  Each path must
+Without grpc the script fails (phases 4, 6 and 14 need it).  The launch
+counters are zeroed just before each path (main: phases 3-4; restore: 5;
+offline: 7; graph: 8; writes: 9; cluster: 10; quantized: 11; sharded: 12;
+featurestore: 13) and read just after it; the crash path's (6) and the
+composer path's (14) are those their subprocesses report as they stop.  Each path must
 have launched the kernels it runs.  The second-to-last line is a JSON
 summary of the kernels, an entry per summary case: "launches" is the main
 path's count (the graph path's for the build's pool cases, the writes
 path's for the waves', the cluster path's for the cluster-routed build's,
 the quantized path's for the pools, the sharded path's for its shapes,
-the featurestore path's for phase 13's shape),
+the featurestore path's for phase 13's shape, the composer path's for
+its store surface's),
 "paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
 numpy with a fixed seed.
 """
@@ -354,6 +376,16 @@ FS_ROWS = 1 << 18
 FS_K, FS_WARM, FS_QUERIES, FS_NEAR, FS_NOISE, FS_TRACED = 10, 8, 256, 128, 0.05, 16
 FS_TRACE_WARM = 4
 FS_RECALL, FS_TOP1 = 0.99, 0.99
+# Phase 14, the composer: phase 13's definitions (a sqlite source of FS_ROWS
+# rows, the engine vector store on the card, the entity, the embedding
+# feature: 5 resources) applied by its coordinator, READY within
+# COMPOSER_READY_S; FS_WARM + FS_QUERIES single Nearest calls, then
+# COMPOSER_THREADS clients of COMPOSER_CALLS calls each over phase 13's
+# queries; a store-surface space of COMPOSER_STORE_ROWS rows (exact: K1).
+COMPOSER_RESOURCES, COMPOSER_READY_S = 5, 300
+COMPOSER_THREADS, COMPOSER_CALLS = 8, 32
+COMPOSER_STORE_ROWS = 4096
+COMPOSER_STORE_CAP = 1 << 12  # the capacity 4,096 rows take
 # (kernel, metric, B, k, exact, capacity, live rows) compared with its plain
 # version, at every shape a path gives it; exact is K1's operand precision
 # (None for K2, which is always bf16).
@@ -375,6 +407,8 @@ KERNEL_CASES = (
     ("fused_topk_search", "cosine", MAIN_B, 16, True, CAP, ROWS),       # main, restore
     ("fused_topk_search", "l2", MAIN_B, 16, True, CAP, ROWS),
     ("fused_topk_search", "l2", 1, 16, True, CRASH_CAP, CRASH_ROWS + CRASH_UNACKED),  # crash
+    ("fused_topk_search", "l2", 1, 16, True, COMPOSER_STORE_CAP,  # composer
+     COMPOSER_STORE_ROWS),
     ("fused_topk_search_v2", "l2", 1024, 128, None, CAP, ROWS),
     ("fused_topk_search_v2", "cosine", 1024, 128, None, CAP, ROWS),
     ("fused_topk_search_v2", "cosine", MAIN_B, 128, None, CAP, ROWS),   # main, restore
@@ -458,6 +492,7 @@ SUMMARY = {
     ("cosine", MAIN_B, 16, True, SHARD_CAP): ("fused_topk_search", "sharded"),
     ("l2", GRAPH_POOL_B, GRAPH_POOL_K, False, SHARD_CAP): ("fused_topk_search",
                                                            "sharded graph pool"),
+    ("l2", 1, 16, True, COMPOSER_STORE_CAP): ("fused_topk_search", "composer store"),
 }
 # the path whose launches a summary case reports
 CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "graph",
@@ -466,7 +501,7 @@ CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "g
              "int8 pool": "quantized", "deep int8 pool": "quantized",
              "deep bf16 pool": "quantized", "sharded": "sharded",
              "sharded graph pool": "sharded", "sharded deep int8 pool": "sharded",
-             "featurestore": "featurestore"}
+             "featurestore": "featurestore", "composer store": "composer"}
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
 
@@ -951,11 +986,8 @@ def phase_main(torch, x_host, launches):
 
 
 def phase_wire(torch, x_host):
-    try:
-        import grpc
-    except ImportError as e:
-        print(f"[wire] not run: grpc is not installed ({e})", flush=True)
-        return False
+    import grpc
+
     from embeddinghub_tpu_torch.service.server import build_server, pb, pb_grpc
 
     server, service, port = build_server("127.0.0.1:0", "cuda")
@@ -1032,7 +1064,6 @@ def phase_wire(torch, x_host):
         channel.close()
         server.stop(0).wait()
         service.stop()
-    return True
 
 
 def dir_bytes(path: Path) -> int:
@@ -1118,14 +1149,10 @@ def phase_restore(torch, x_host, launches):
 
 
 def phase_crash(torch, x_host):
-    """Returns the kernel launches of the restarted server's process, or
-    None when grpc is not installed."""
-    try:
-        import grpc
-    except ImportError as e:
-        print(f"[crash] not run: grpc is not installed ({e})", flush=True)
-        return None
+    """Returns the kernel launches of the restarted server's process."""
     from concurrent.futures import TimeoutError as FutureTimeout
+
+    import grpc
 
     from embeddinghub_tpu_torch.sdk.client import EmbeddingHubClient
     from embeddinghub_tpu_torch.service.spawn import ServerProcess
@@ -1265,9 +1292,9 @@ def graph_walk(torch, index, test, oracle, ef, what, tag="graph"):
     return recall
 
 
-def phase_graph(torch, launches, wire, base):
+def phase_graph(torch, launches, base):
     """Phase 8.  Returns what phase 9 writes into: the reopened store (behind
-    the gRPC server when grpc is installed), the rows and the queries."""
+    the gRPC server), the rows and the queries."""
     from embeddinghub_tpu_torch.index.hnsw import HNSWIndex
     from embeddinghub_tpu_torch.ops import distance as D
     from embeddinghub_tpu_torch.ops import fused_topk as F
@@ -1327,14 +1354,6 @@ def phase_graph(torch, launches, wire, base):
     print(f"[graph] save: {save_s:.2f} s; snapshot "
           f"{dir_bytes(base / 'graph' / 'initial')} bytes", flush=True)
     ctx = {"train": train, "test": test, "base": base, "wire": None}
-    if not wire:
-        hub = EmbeddingHub.load_or_create(base, engine="hnsw", device=CARD)
-        check(hub.get_version("graph").nearest_batch(test, GRAPH_K) == want,
-              "nearest_batch after the reopen differs")
-        print("[graph] over the wire: not run (grpc is not installed); "
-              "reopened from the snapshot, nearest_batch lists equal", flush=True)
-        ctx["hub"] = hub
-        return ctx
     import grpc
 
     from embeddinghub_tpu_torch.service.server import build_server, pb, pb_grpc
@@ -1487,31 +1506,25 @@ def phase_writes(torch, launches, ctx):
     # 2. over the wire: 5 flushes, 5 waves
     s = WAVE_ROWS
     wire_keys = new_keys[s:s + WIRE_WAVE_ROWS]
-    if ctx.get("wire"):
-        from embeddinghub_tpu_torch.service.server import pb, pb_grpc
+    from embeddinghub_tpu_torch.service.server import pb, pb_grpc
 
-        stub = pb_grpc.EmbeddingHubStub(ctx["wire"][2])
+    stub = pb_grpc.EmbeddingHubStub(ctx["wire"][2])
 
-        def requests():
-            for j in range(WIRE_WAVE_ROWS):
-                req = pb.MultiSetRequest(space="graph", key=wire_keys[j])
-                req.embedding.values[:] = new[s + j].tolist()
-                yield req
+    def requests():
+        for j in range(WIRE_WAVE_ROWS):
+            req = pb.MultiSetRequest(space="graph", key=wire_keys[j])
+            req.embedding.values[:] = new[s + j].tolist()
+            yield req
 
-        waves0 = index.waves
-        t0 = time.perf_counter()
-        stub.MultiSet(requests())
-        wire_s = time.perf_counter() - t0
-        check(index.waves - waves0 == WIRE_WAVE_ROWS // FLUSH,
-              f"wire MultiSet made {index.waves - waves0} waves")
-        print(f"[writes] raw-stub MultiSet of {WIRE_WAVE_ROWS} rows "
-              f"({WIRE_WAVE_ROWS // FLUSH} flushes, one wave each): {wire_s:.2f} s, "
-              f"{WIRE_WAVE_ROWS / wire_s:.0f} rows/s", flush=True)
-    else:
-        for j in range(0, WIRE_WAVE_ROWS, FLUSH):
-            version.multiset(zip(wire_keys[j:j + FLUSH], new[s + j:s + j + FLUSH]))
-        print("[writes] over the wire: not run (grpc is not installed); the same "
-              f"{WIRE_WAVE_ROWS} rows by multiset", flush=True)
+    waves0 = index.waves
+    t0 = time.perf_counter()
+    stub.MultiSet(requests())
+    wire_s = time.perf_counter() - t0
+    check(index.waves - waves0 == WIRE_WAVE_ROWS // FLUSH,
+          f"wire MultiSet made {index.waves - waves0} waves")
+    print(f"[writes] raw-stub MultiSet of {WIRE_WAVE_ROWS} rows "
+          f"({WIRE_WAVE_ROWS // FLUSH} flushes, one wave each): {wire_s:.2f} s, "
+          f"{WIRE_WAVE_ROWS / wire_s:.0f} rows/s", flush=True)
     rows.add(wire_keys, new[s:s + WIRE_WAVE_ROWS])
     check(version.size == ROWS + WAVE_ROWS + WIRE_WAVE_ROWS, f"size {version.size}")
     # the last wave pooled layer 1 over the members of the rows before it
@@ -2305,7 +2318,9 @@ def trace_events(log_dir: str) -> list:
 def phase_featurestore(torch, x_host, launches):
     """Phase 13: the feature store's definitions applied by a port
     ``ff.Client`` in process, the embedding feature materialized into the
-    engine vector store on the card, then single ``nearest`` calls."""
+    engine vector store on the card, then single ``nearest`` calls.
+    Returns the queries, their keys and the exact oracle's rows (phase 14
+    asks the composer the same)."""
     import embeddinghub_tpu_torch.featurestore as ff
     from embeddinghub_tpu_torch.featurestore.providers import engine_vector
     from embeddinghub_tpu_torch.featurestore.providers.base import reset_provider_cache
@@ -2455,6 +2470,210 @@ def phase_featurestore(torch, x_host, launches):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[featurestore] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"queries": queries, "keys": got, "oracle": oi.cpu().numpy()}
+
+
+# phase 14's definitions file: phase 13's resources, the rows from a .npy
+COMPOSER_DEFS = """
+import numpy as np
+import embeddinghub_tpu_torch.featurestore as ff
+
+x = np.load({rows!r})
+reg = ff.global_registrar()
+reg.register_sqlite_offline("warehouse")
+reg.register_engine_vector_store("vectors")
+reg.register_entity("item")
+reg.register_primary_data("items", provider="warehouse", location={{"rows": [
+    {{"key": f"e{{i}}", "vec": v}} for i, v in enumerate(x.tolist())]}})
+reg.register_embedding_feature(
+    "emb", source=("items", "default"), entity="item", entity_column="key",
+    value_column="vec", dims={dims}, provider="vectors")
+"""
+
+
+def composer_ready(mc, wire, deadline: float) -> dict:
+    """Poll the composer's metadata gRPC until its COMPOSER_RESOURCES
+    resources are READY; a FAILED one, or the deadline, fails the run.
+    ``mc`` (the compact service) lists the providers, the entity and the
+    feature; the source comes from ``wire`` (the typed ff_metadata
+    service), because the compact service's blob carries the source's
+    inline rows as JSON (10,927,216 bytes for 4,096 rows of 128 dims,
+    already past gRPC's default 4 MiB message limit)."""
+    from embeddinghub_tpu_torch.featurestore.proto import ff_metadata_pb2 as mpb
+    from embeddinghub_tpu_torch.featurestore.resources import ResourceType
+
+    kinds = (ResourceType.PROVIDER, ResourceType.ENTITY, ResourceType.FEATURE_VARIANT)
+    source = mpb.NameVariantRequest(name_variant=mpb.NameVariant(
+        name="items", variant="default"))
+    while True:
+        states = {(r.rtype.name, r.name): (r.status.name, r.status_error)
+                  for t in kinds for r in mc.list(t)}
+        for sv in wire.GetSourceVariants(iter([source])):
+            states[("SOURCE_VARIANT", sv.name)] = (
+                mpb.ResourceStatus.Status.Name(sv.status.status), sv.status.error_message)
+        failed = {k: err for k, (status, err) in states.items() if status == "FAILED"}
+        check(not failed, f"composer resources FAILED: {failed}")
+        if (len(states) == COMPOSER_RESOURCES
+                and all(status == "READY" for status, _ in states.values())):
+            return states
+        now = {k: status for k, (status, _) in states.items()}
+        check(time.monotonic() < deadline,
+              f"composer resources not READY within {COMPOSER_READY_S} s: {now}")
+        time.sleep(0.5)
+
+
+def phase_composer(torch, x_host, fs):
+    """Phase 14: ``python -m embeddinghub_tpu_torch.main`` on the card,
+    phase 13's definitions applied by its coordinator, ``Nearest`` over
+    gRPC from one client and from COMPOSER_THREADS, the store surface and
+    the dashboard.  Returns the launches its process reports on SIGTERM."""
+    import urllib.request
+
+    from embeddinghub_tpu_torch.featurestore.metadata_grpc import RemoteMetadataClient
+    from embeddinghub_tpu_torch.featurestore.proto import ff_scheduling_pb2 as spb
+    from embeddinghub_tpu_torch.featurestore.proto.ff_metadata_grpc import MetadataStub
+    from embeddinghub_tpu_torch.featurestore.proto.ff_scheduling_grpc import TasksStub
+    from embeddinghub_tpu_torch.featurestore.remote_client import RemoteServingClient
+    from embeddinghub_tpu_torch.sdk.client import EmbeddingHubClient
+    from embeddinghub_tpu_torch.service.spawn import ComposerProcess
+
+    t_phase = time.perf_counter()
+    queries, want = fs["queries"], fs["keys"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_composer_") as tmp:
+        rows = Path(tmp) / "rows.npy"
+        np.save(rows, x_host[:FS_ROWS])
+        defs = Path(tmp) / "defs.py"
+        defs.write_text(COMPOSER_DEFS.format(rows=str(rows), dims=DIMS))
+        t0 = time.perf_counter()
+        # One malloc arena: glibc gives each further thread an arena of its
+        # own, in which the coordinator thread's registration of the source
+        # ran 2.5x slower than in a main thread (tools/probe_composer.py).
+        composer = ComposerProcess(Path(tmp) / "store", device=CARD, defs=defs,
+                                   env={"MALLOC_ARENA_MAX": "1"},
+                                   start_timeout=SERVER_START_S, wait_timeout=WAIT_S)
+        up_s, up_wall = time.perf_counter() - t0, time.time()
+        try:
+            mc = RemoteMetadataClient(host="127.0.0.1", port=composer.metadata_port)
+            wire = MetadataStub(mc._channel)
+            t0 = time.perf_counter()
+            states = composer_ready(mc, wire, time.monotonic() + COMPOSER_READY_S)
+            ready_s = time.perf_counter() - t0
+            # the coordinator's task runs, from its tasks wire: where READY's
+            # seconds went
+            runs = sorted(TasksStub(mc._channel).GetAllRuns(spb.Empty()),
+                          key=lambda r: r.startTime.ToMilliseconds())
+            mc.close()
+            parts = "; ".join(
+                f"{r.name} from {r.startTime.ToMilliseconds() / 1e3 - up_wall:.2f} s, "
+                f"{(r.endTime.ToMilliseconds() - r.startTime.ToMilliseconds()) / 1e3:.2f} s"
+                for r in runs)
+            print(f"[composer] up in {up_s:.2f} s (store, serving, metadata, dashboard "
+                  f"and the coordinator; the defs' {FS_ROWS} rows loaded); "
+                  f"{len(states)} resources READY {ready_s:.2f} s after the up line "
+                  f"(the coordinator's materialization of {FS_ROWS} x {DIMS}); task runs, "
+                  f"start after the up line and length: {parts}", flush=True)
+
+            rc = RemoteServingClient(host="127.0.0.1", port=composer.serving_port)
+
+            def nearest(client, q):
+                return client.nearest("emb", "default", q, FS_K)
+
+            for q in queries[:FS_WARM]:
+                nearest(rc, q)
+            walls, got = [], []
+            for q in queries:
+                t0 = time.perf_counter()
+                got.append(nearest(rc, q))
+                walls.append(time.perf_counter() - t0)
+            rc.close()
+            check(got == want, "a gRPC Nearest key list differs from phase 13's "
+                  "in-process one")
+            ids = np.array([[int(k[1:]) for k in keys] for keys in got])
+            recall = recall_at(ids, fs["oracle"])
+            check(recall >= FS_RECALL, f"composer recall@{FS_K} {recall} < {FS_RECALL}")
+            walls_ms = np.array(walls) * 1e3
+            print(f"[composer] {FS_QUERIES} Nearest calls over gRPC, one client, "
+                  f"k={FS_K}: p50 {np.percentile(walls_ms, 50):.3f} ms, p99 "
+                  f"{np.percentile(walls_ms, 99):.3f} ms a call; keys equal phase 13's "
+                  f"in-process keys; recall@{FS_K} {recall:.5f}", flush=True)
+
+            # COMPOSER_THREADS clients, a channel each, COMPOSER_CALLS calls each
+            from concurrent.futures import ThreadPoolExecutor
+
+            def client_thread(t):
+                c = RemoteServingClient(host="127.0.0.1", port=composer.serving_port)
+                out = []
+                try:
+                    for j in range(t * COMPOSER_CALLS, (t + 1) * COMPOSER_CALLS):
+                        t0 = time.perf_counter()
+                        keys = nearest(c, queries[j])
+                        out.append((j, keys, time.perf_counter() - t0))
+                finally:
+                    c.close()
+                return out
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(COMPOSER_THREADS) as pool:
+                results = [r for rs in pool.map(client_thread, range(COMPOSER_THREADS))
+                           for r in rs]
+            conc_s = time.perf_counter() - t0
+            calls = COMPOSER_THREADS * COMPOSER_CALLS
+            check(len(results) == calls, f"{len(results)} concurrent answers, not {calls}")
+            for j, keys, _ in results:
+                check(keys == got[j], f"concurrent Nearest {j} differs from the "
+                      "single-client answer")
+            conc_ms = np.array([dt for _, _, dt in results]) * 1e3
+            print(f"[composer] {COMPOSER_THREADS} clients x {COMPOSER_CALLS} Nearest "
+                  f"calls: {calls / conc_s:.1f} calls/s, p50 "
+                  f"{np.percentile(conc_ms, 50):.3f} ms, p99 "
+                  f"{np.percentile(conc_ms, 99):.3f} ms a call; every answer equals the "
+                  f"single-client one", flush=True)
+
+            # the store surface: an exact space (4,096 rows: K1)
+            c = EmbeddingHubClient(host="127.0.0.1", port=composer.store_port)
+            c.create_space("composer", DIMS)
+            keys = [f"c{j}" for j in range(COMPOSER_STORE_ROWS)]
+            c.multiset("composer", ((keys[j], x_host[j].tolist())
+                                    for j in range(COMPOSER_STORE_ROWS)))
+            back = np.asarray(c.get("composer", "c7"), dtype=np.float32)
+            check(np.array_equal(back, x_host[7]), "the store surface's get differs")
+            near = list(c.nearest_neighbor("composer", MAIN_K, key="c5"))
+            check(len(near) == MAIN_K and "c5" not in near,
+                  f"the store surface's keyed nearest {near}")
+            # against an exact f64 oracle over the space's rows but the key's
+            space = x_host[:COMPOSER_STORE_ROWS].astype(np.float64)
+            dist = ((space - space[5]) ** 2).sum(axis=1)
+            dist[5] = np.inf
+            want_d = np.sort(dist)[:MAIN_K]
+            got_d = dist[[int(key[1:]) for key in near]]
+            store_err = float(np.abs(got_d - want_d).max())
+            check(np.allclose(got_d, want_d, rtol=1e-5, atol=1e-4),
+                  f"the store surface's keyed nearest is off the exact oracle by "
+                  f"{store_err} (l2 distances {got_d} against {want_d})")
+            c.close()
+
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{composer.http_port}/data/features",
+                    timeout=WAIT_S) as r:
+                features = json.loads(r.read().decode())
+            check([f["name"] for f in features] == ["emb"],
+                  f"the dashboard lists {features}")
+            print(f"[composer] store surface: {COMPOSER_STORE_ROWS} rows multiset, get "
+                  f"bit-exact, keyed nearest excludes the key and matches the exact "
+                  f"oracle's distances (max abs err {store_err:.3g}); the dashboard's "
+                  f"/data/features lists emb", flush=True)
+            t0 = time.perf_counter()
+            launches = composer.stop()
+            stop_s = time.perf_counter() - t0
+        finally:
+            composer.kill()
+    nearest_calls = FS_WARM + FS_QUERIES + calls
+    per_call = launches.get("fused_topk_search_v2", 0) / nearest_calls
+    print(f"[composer] SIGTERM: stopped in {stop_s:.2f} s, exit code 0; K2 launches a "
+          f"Nearest call {per_call:g} ({nearest_calls} calls); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(per_call >= 1, f"K2 launched {per_call} times a Nearest call in the composer")
+    return launches
 
 
 REPLACES = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
@@ -2528,10 +2747,10 @@ def main() -> int:
     paths = {}
     F.reset_launches()
     phase_main(torch, x_host, F.LAUNCHES)
-    wire = phase_wire(torch, x_host)
+    phase_wire(torch, x_host)
     paths["main"] = dict(F.LAUNCHES)
     flat = ("fused_topk_search", "fused_topk_search_v2", "fused_topk_search_large_k")
-    needs = {"main": flat if wire else flat[:2],
+    needs = {"main": flat,
              "restore": flat,
              "offline": ("fused_topk_search_v2",),
              "graph": ("fused_topk_search",),
@@ -2540,7 +2759,8 @@ def main() -> int:
              "quantized": ("fused_topk_search_v2_int8", "fused_topk_search_v2"),
              "sharded": ("fused_topk_search", "fused_topk_search_v2_int8"),
              "featurestore": ("fused_topk_search_v2",),
-             "crash": ("fused_topk_search",)}
+             "crash": ("fused_topk_search",),
+             "composer": ("fused_topk_search_v2", "fused_topk_search")}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
                       ("offline", lambda: phase_offline(torch, x_host))):
         F.reset_launches()
@@ -2552,7 +2772,7 @@ def main() -> int:
         ctx = {}
         try:
             F.reset_launches()
-            ctx = phase_graph(torch, F.LAUNCHES, wire, Path(tmp) / "store")
+            ctx = phase_graph(torch, F.LAUNCHES, Path(tmp) / "store")
             paths["graph"] = dict(F.LAUNCHES)
             F.reset_launches()
             phase_writes(torch, F.LAUNCHES, ctx)
@@ -2578,12 +2798,13 @@ def main() -> int:
     # the feature store's vector path: ff.Client -> materialization -> the
     # engine vector store -> nearest (phase 13)
     F.reset_launches()
-    phase_featurestore(torch, x_host, F.LAUNCHES)
+    fs = phase_featurestore(torch, x_host, F.LAUNCHES)
     paths["featurestore"] = dict(F.LAUNCHES)
-    # the crash path's kernels run in the server subprocess, which reports them
-    crash = phase_crash(torch, x_host)
-    if crash is not None:
-        paths["crash"] = crash
+    # the crash path's and the composer path's kernels run in subprocesses,
+    # which report them as they stop
+    paths["crash"] = phase_crash(torch, x_host)
+    paths["composer"] = phase_composer(torch, x_host, fs)
+    del fs
     for path, counts in paths.items():
         print(f"[{path}] launches on the {path} path: {counts}", flush=True)
         for name in needs[path]:

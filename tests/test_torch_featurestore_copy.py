@@ -1,14 +1,20 @@
 """The port's feature store is the JAX package's, copied.
 
 Each module of ``embeddinghub_tpu_torch/featurestore/`` must equal its
-counterpart under ``embeddinghub_tpu/featurestore/`` once
-``embeddinghub_tpu.`` is renamed ``embeddinghub_tpu_torch.`` and the
-docstrings are stripped from both syntax trees (comments are not in the
-tree).  The modules with port-specific code may differ only in the
-definitions named in ``_DIFFERS``: a top-level name, or ``Class.method``.
+counterpart under ``embeddinghub_tpu/featurestore/`` once its module paths
+are renamed (``embeddinghub_tpu.<a subpackage or module of the JAX
+package>`` becomes ``embeddinghub_tpu_torch.<...>``) and the docstrings
+are stripped from both syntax trees (comments are not in the tree).  Wire
+names that merely start with ``embeddinghub_tpu.``, such as the metadata
+proto's package ``embeddinghub_tpu.metadata.proto``, and the serialized
+descriptors stay as they are.  The modules with port-specific code may
+differ only in the definitions named in ``_DIFFERS``: a top-level name, or
+``Class.method``.  The proto sources and the dashboard's page are
+byte-equal copies.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -16,6 +22,19 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 JAX = REPO / "embeddinghub_tpu" / "featurestore"
 PORT = REPO / "embeddinghub_tpu_torch" / "featurestore"
+
+# the JAX package's subpackages and modules: the names a module path takes
+# after ``embeddinghub_tpu.``
+_JAX_NAMES = sorted(
+    p.stem for p in (REPO / "embeddinghub_tpu").iterdir()
+    if (p.is_dir() and (p / "__init__.py").exists())
+    or (p.suffix == ".py" and p.stem != "__init__"))
+_MODULE_PATH = re.compile(r"\bembeddinghub_tpu\.(?=(?:%s)\b)" % "|".join(_JAX_NAMES))
+
+
+def renamed(text: str) -> str:
+    """``text`` with the JAX package's module paths renamed to the port's."""
+    return _MODULE_PATH.sub("embeddinghub_tpu_torch.", text)
 
 MODULES = [
     "fferr.py", "logging.py", "feature_flag.py", "variant_names.py",
@@ -28,7 +47,25 @@ MODULES = [
     "transform_engine.py", "transform_worker.py", "coordinator.py",
     "serving.py", "registry.py", "class_api.py", "executor_credentials.py",
     "__init__.py",
+    # the wire: the protos, the gRPC services, the remote clients, the dashboard
+    "proto/__init__.py", "proto/serving_pb2.py", "proto/serving_pb2_grpc.py",
+    "proto/metadata_pb2.py", "proto/metadata_pb2_grpc.py",
+    "proto/ff_metadata_pb2.py", "proto/ff_metadata_grpc.py",
+    "proto/ff_scheduling_pb2.py", "proto/ff_scheduling_grpc.py",
+    "metrics.py", "interceptors.py", "health.py", "serving_grpc.py",
+    "remote_client.py", "metadata_wire.py", "api_wire.py", "tasks_wire.py",
+    "metadata_grpc.py", "dashboard.py",
 ]
+
+# copied byte for byte
+BYTE_EQUAL = [
+    "proto/serving.proto", "proto/metadata.proto", "proto/ff_metadata.proto",
+    "proto/ff_scheduling.proto", "dashboard_ui.html",
+]
+
+# the generated message modules: every message, enum and service of theirs
+# keeps its full name on the wire
+_PB2 = ["serving_pb2", "metadata_pb2", "ff_metadata_pb2", "ff_scheduling_pb2"]
 
 # where the port is not a copy: the device of the in-process engine store
 # (and the registrar passing it), and the worker's environment
@@ -78,14 +115,14 @@ def _definitions(body, prefix=""):
 
 def test_the_slice_is_whole():
     """The port's feature store holds exactly the modules of this list."""
-    have = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py"))
-    assert have == sorted(MODULES)
+    have = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*")
+                  if p.is_file() and "__pycache__" not in p.parts)
+    assert have == sorted(MODULES + BYTE_EQUAL)
 
 
 @pytest.mark.parametrize("module", MODULES)
 def test_module_is_the_reference_renamed(module):
-    ref = (JAX / module).read_text().replace(
-        "embeddinghub_tpu.", "embeddinghub_tpu_torch.")
+    ref = renamed((JAX / module).read_text())
     want, got = _tree(ref), _tree((PORT / module).read_text())
     allowed = _DIFFERS.get(module, set())
     if not allowed:
@@ -97,10 +134,68 @@ def test_module_is_the_reference_renamed(module):
     assert differ <= allowed, sorted(differ - allowed)
 
 
+@pytest.mark.parametrize("name", BYTE_EQUAL)
+def test_file_is_a_byte_copy(name):
+    assert (PORT / name).read_bytes() == (JAX / name).read_bytes()
+
+
+def _wire_names(module):
+    """Every full name a generated module puts on the wire: its file's
+    package, messages (nested ones too), enums and services with their
+    methods."""
+    fd = module.DESCRIPTOR
+    names = [fd.name, fd.package]
+
+    def walk(msg):
+        names.append(msg.full_name)
+        names.extend(e.full_name for e in msg.enum_types)
+        for nested in msg.nested_types:
+            walk(nested)
+
+    for msg in fd.message_types_by_name.values():
+        walk(msg)
+    names.extend(e.full_name for e in fd.enum_types_by_name.values())
+    for svc in fd.services_by_name.values():
+        names.append(svc.full_name)
+        names.extend(m.full_name for m in svc.methods)
+    return names
+
+
+@pytest.mark.parametrize("name", _PB2)
+def test_wire_names_are_the_reference_s(name):
+    """Both packages' proto modules load in one process and name every
+    message, enum and service alike; the compact metadata service's method
+    path keeps the JAX package's name."""
+    import importlib
+
+    ref = importlib.import_module(f"embeddinghub_tpu.featurestore.proto.{name}")
+    port = importlib.import_module(f"embeddinghub_tpu_torch.featurestore.proto.{name}")
+    assert _wire_names(port) == _wire_names(ref)
+    assert len(_wire_names(port)) > 2
+    if name == "metadata_pb2":
+        from embeddinghub_tpu.featurestore.proto import metadata_pb2_grpc as ref_grpc
+        from embeddinghub_tpu_torch.featurestore.proto import metadata_pb2_grpc as port_grpc
+
+        assert port_grpc._SERVICE == ref_grpc._SERVICE == (
+            "embeddinghub_tpu.metadata.proto.Metadata")
+        assert port.DESCRIPTOR.package == "embeddinghub_tpu.metadata.proto"
+
+
+def test_the_rename_keeps_wire_names():
+    """The rename rewrites module paths and leaves the wire names alone."""
+    assert renamed("from embeddinghub_tpu.featurestore.proto import x") == (
+        "from embeddinghub_tpu_torch.featurestore.proto import x")
+    assert renamed("import embeddinghub_tpu.utils.channels") == (
+        "import embeddinghub_tpu_torch.utils.channels")
+    assert renamed('"embeddinghub_tpu.metadata.proto.Metadata"') == (
+        '"embeddinghub_tpu.metadata.proto.Metadata"')
+    assert renamed('namespace="embeddinghub_tpu"') == 'namespace="embeddinghub_tpu"'
+    assert renamed("embeddinghub_tpu_torch.featurestore") == "embeddinghub_tpu_torch.featurestore"
+
+
 def test_the_check_sees_a_change(tmp_path):
     """A one-token change of a copied module fails the comparison."""
-    ref = (JAX / "serving.py").read_text().replace(
-        "embeddinghub_tpu.", "embeddinghub_tpu_torch.")
+    ref = renamed((JAX / "serving.py").read_text())
     assert "k: int" in ref
     assert ast.dump(_tree(ref.replace("k: int", "k: float", 1))) != ast.dump(_tree(ref))
     with_doc = ref.replace('"""', '"""Changed. ', 1)

@@ -83,6 +83,22 @@ def _forbidden(name: str) -> bool:
     "embeddinghub_tpu_torch.featurestore.coordinator, embeddinghub_tpu_torch.featurestore.serving, "
     "embeddinghub_tpu_torch.featurestore.registry, embeddinghub_tpu_torch.featurestore.class_api, "
     "embeddinghub_tpu_torch.featurestore.executor_credentials",
+    "embeddinghub_tpu_torch.featurestore.proto, "
+    "embeddinghub_tpu_torch.featurestore.proto.serving_pb2, "
+    "embeddinghub_tpu_torch.featurestore.proto.serving_pb2_grpc, "
+    "embeddinghub_tpu_torch.featurestore.proto.metadata_pb2, "
+    "embeddinghub_tpu_torch.featurestore.proto.metadata_pb2_grpc, "
+    "embeddinghub_tpu_torch.featurestore.proto.ff_metadata_pb2, "
+    "embeddinghub_tpu_torch.featurestore.proto.ff_metadata_grpc, "
+    "embeddinghub_tpu_torch.featurestore.proto.ff_scheduling_pb2, "
+    "embeddinghub_tpu_torch.featurestore.proto.ff_scheduling_grpc",
+    "embeddinghub_tpu_torch.featurestore.metrics, embeddinghub_tpu_torch.featurestore.interceptors, "
+    "embeddinghub_tpu_torch.featurestore.health, embeddinghub_tpu_torch.featurestore.serving_grpc, "
+    "embeddinghub_tpu_torch.featurestore.remote_client, "
+    "embeddinghub_tpu_torch.featurestore.metadata_wire, embeddinghub_tpu_torch.featurestore.api_wire, "
+    "embeddinghub_tpu_torch.featurestore.tasks_wire, "
+    "embeddinghub_tpu_torch.featurestore.metadata_grpc, embeddinghub_tpu_torch.featurestore.dashboard",
+    "embeddinghub_tpu_torch.main",
 ])
 def test_port_imports_no_jax(mods):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -123,8 +139,16 @@ def test_no_import_statement_names_the_jax_package(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-# a dotted name under the JAX package, as ``-m`` or ``importlib`` take it
-_MODULE_NAME = re.compile(r"(?<![\w.])embeddinghub_tpu(?:\.[A-Za-z_]\w*)+")
+# a dotted name under the JAX package, as ``-m`` or ``importlib`` take it:
+# its first component after ``embeddinghub_tpu.`` is a subpackage or module
+# of the JAX package (a wire name such as the metadata proto's package
+# ``embeddinghub_tpu.metadata.proto`` names none)
+_JAX_NAMES = sorted(
+    p.stem for p in (Path(REPO) / "embeddinghub_tpu").iterdir()
+    if (p.is_dir() and (p / "__init__.py").exists())
+    or (p.suffix == ".py" and p.stem != "__init__"))
+_MODULE_NAME = re.compile(r"(?<![\w.])embeddinghub_tpu\.(?:%s)(?:\.[A-Za-z_]\w*)*\b"
+                          % "|".join(_JAX_NAMES))
 
 
 def _docstrings(tree):
@@ -158,12 +182,25 @@ def test_no_string_names_a_jax_package_module(path):
     assert not bad, f"{path.name} names {bad}"
 
 
-def test_string_check_sees_a_module_target():
+def test_string_check_sees_a_module_target(tmp_path):
     """The check flags the JAX package's own worker target, and not the
-    port's."""
+    port's; it flags every module of the JAX package and no wire name."""
     ref = Path(REPO) / "embeddinghub_tpu" / "featurestore" / "transform_engine.py"
     assert [n for _, n in _module_names_in_strings(ref)] == [
         "embeddinghub_tpu.featurestore.transform_worker"]
     port = Path(REPO) / "embeddinghub_tpu_torch" / "featurestore" / "transform_engine.py"
     assert "embeddinghub_tpu_torch.featurestore.transform_worker" in port.read_text()
     assert _module_names_in_strings(port) == []
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        'A = "embeddinghub_tpu.main"\n'
+        'B = "-m embeddinghub_tpu.service.server"\n'
+        'C = "embeddinghub_tpu.metadata.proto.Metadata"\n'
+        'D = "embeddinghub_tpu"\n'
+        'E = "embeddinghub_tpu.featurestore"\n')
+    assert [n for _, n in _module_names_in_strings(probe)] == [
+        "embeddinghub_tpu.main", "embeddinghub_tpu.service.server",
+        "embeddinghub_tpu.featurestore"]
+    wire = Path(REPO) / "embeddinghub_tpu_torch" / "featurestore" / "proto" / "metadata_pb2_grpc.py"
+    assert "embeddinghub_tpu.metadata.proto.Metadata" in wire.read_text()
+    assert _module_names_in_strings(wire) == []
