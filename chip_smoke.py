@@ -184,9 +184,10 @@ Phases, each of which must pass or the script exits non-zero:
    version's snapshot (store/persistence.save_version; the in-memory hub
    keeps no 4 GB WAL of the 10M rows) and a reopen onto the same mesh
    (load_version(mesh=...)): int8x2 from sflat_meta, the same lists.  (c)
-   Phase 8's 1M SIFT-proxy rows in EmbeddingHub(engine="hnsw-sharded",
-   M=16, efC=200) on a data directory, one multiset with the WAL on: four
-   exact bulk builds of 250,000 rows (K1's pools), their seconds ->
+   The first 262,144 of phase 8's SIFT-proxy rows (cut from 1M to keep the
+   script inside its time) in EmbeddingHub(engine="hnsw-sharded", M=16,
+   efC=200) on a data directory, one multiset with the WAL on: four exact
+   bulk builds of 65,536 rows (K1's pools), their seconds ->
    recall@10 at ef 50/100/200 against an exact K1 oracle (>= 0.95 at
    ef=100) and device ms per 1,024-query batch -> 2 multisets of 4,096 new
    rows (seed 3; a wave of 1,024 rows a shard, K1's pools) -> hub.save()
@@ -256,19 +257,35 @@ Phases, each of which must pass or the script exits non-zero:
    JSON), a second start refused with 1, the store surface on the deployed
    store port (a 4,096-row space, a keyed nearest_neighbor on the exact
    f64 oracle), stop 0 and the composer gone, status 1.
+16. The sharded engines across processes: phase 3's rows, phase 12's
+   queries and phase 12 (c)'s 262,144 SIFT-proxy rows as .npy
+   files -> python -m embeddinghub_tpu_torch.parallel.multihost --procs 2
+   --local-shards 2 --device cuda --backend gloo (two ranks of the one
+   card: NCCL refuses two ranks of one GPU; four shards, 250,000 rows a
+   shard) with a bounded wait: (a) one SPMD add and a B=4096 search at
+   k=10 in f32: the lists equal phase 12's one-card exact lists up to ties
+   (slots within 1e-5) and recall@10 >= 0.999; (b) the same in int8: one
+   guard dtype on both ranks, recall@10 >= 0.977 against those lists; (c)
+   per-rank shard files of the int8 index read back by their ranks: the
+   same ids; (d) hnsw-sharded over the SIFT-proxy rows (M=16, efC=200,
+   65,536 rows a shard): recall@10 at ef=100 >= 0.95 against an exact K1
+   oracle.  Both ranks' lists identical; each rank's ms a call, the gloo
+   gather's ms and (CUDA events) its shards' device ms; each rank must
+   have launched K1 and K2's int8 pool.  A [multihost] line prints them.
 
 Without grpc the script fails (phases 4, 6, 14 and 15 need it).  The launch
 counters are zeroed just before each path (main: phases 3-4; restore: 5;
 offline: 7; graph: 8; writes: 9; cluster: 10; quantized: 11; sharded: 12;
-featurestore: 13) and read just after it; the crash path's (6) and the
-composer path's (14) are those their subprocesses report as they stop.  Each path must
+featurestore: 13) and read just after it; the crash path's (6), the
+composer path's (14) and the multihost path's (16, the ranks' counts
+summed) are those their subprocesses report as they stop.  Each path must
 have launched the kernels it runs.  The second-to-last line is a JSON
 summary of the kernels, an entry per summary case: "launches" is the main
 path's count (the graph path's for the build's pool cases, the writes
 path's for the waves', the cluster path's for the cluster-routed build's,
 the quantized path's for the pools, the sharded path's for its shapes,
 the featurestore path's for phase 13's shape, the composer path's for
-its store surface's),
+its store surface's, the multihost path's for a rank's int8 shard),
 "paths" each path's own.  The last line is {"ok": true, "device": {...}}.  Data comes from
 numpy with a fixed seed.
 """
@@ -373,19 +390,31 @@ POOL_PREFIX = 600_008
 # Deep-10M rows in a "sharded-int8" store (2,500,000 a shard in 2**22 local
 # rows, past the 2**21-row shard threshold: K2's int8 pool over 16 chunks of
 # 2**18 rows, 256 candidates each), then SHARD_STREAMS multisets of
-# DEEP_WAVE new rows; (c) phase 8's 1M SIFT-proxy rows in an "hnsw-sharded"
-# store: four exact bulk builds of 250,000 rows (K1's pools at k=256 over
-# 262,144 padded rows), then SHARD_GRAPH_WAVES multisets of FLUSH rows (a
-# wave of 1,024 rows a shard: K1's layer-0 pool at k=200 over the shard's
-# live prefix).
+# DEEP_WAVE new rows; (c) the first SHARD_GRAPH_ROWS of phase 8's SIFT-proxy
+# rows in an "hnsw-sharded" store: four exact bulk builds of
+# SHARD_GRAPH_CAP rows (K1's pools at k=256 over them: its large-k route),
+# then SHARD_GRAPH_WAVES multisets of FLUSH rows (a wave of 1,024 rows a
+# shard: K1's layer-0 pool at k=200 over the shard's live prefix).
 SHARDS = 4
 SHARD_CAP, SHARD_ROWS = 1 << 18, ROWS // SHARDS
 SHARD_RECALL, SHARD_TIE = 0.999, 1e-5
 SHARD_DEEP_CAP, SHARD_DEEP_ROWS = 1 << 22, DEEP_ROWS // SHARDS
 SHARD_DEEP_CHUNK = 1 << 18  # parallel/sharded_flat._DEEP_CHUNK
 SHARD_STREAMS, SHARD_SELF = 4, 64
+SHARD_GRAPH_ROWS = 1 << 18  # cut from phase 8's 1M to keep the script's time
+SHARD_GRAPH_CAP = SHARD_GRAPH_ROWS // SHARDS
 SHARD_GRAPH_WAVES = 2
 SHARD_WAVE_B = FLUSH // SHARDS
+# Phase 16, the sharded engines across processes: MH_PROCS ranks of
+# torch.distributed (gloo: the two ranks share the one card, which NCCL does
+# not allow), MH_LOCAL shards each, launched by parallel/multihost.py: phase
+# 3's rows as in phase 12 (a) (f32, then int8: K2's int8 pool at k = 16 x 8
+# over each shard's 250,000 live rows in 2**18), per-rank shard files, and
+# phase 12 (c)'s graph rows, SHARD_GRAPH_CAP a shard (K1's build pools as
+# there).
+MH_PROCS, MH_LOCAL = 2, 2
+MH_INT8_RECALL = 0.977
+MH_TIMEOUT_S = 420  # the launcher's bound on its ranks
 # Phase 13, the feature store's vector serving path: phase 3's first FS_ROWS
 # rows (keys e0...) as an embedding feature of a sqlite source, materialized
 # into the engine vector store on the card (capacity FS_ROWS, past
@@ -450,9 +479,10 @@ KERNEL_CASES = (
     ("fused_topk_search_large_k", "l2", 1, BIG_K, True, WIRE_CAP, WIRE_ROWS),   # wire
     ("fused_topk_search_large_k", "cosine", BIG_B, BIG_K, True, CAP, ROWS),     # restore
     ("fused_topk_search", "cosine", MAIN_B, 16, True, SHARD_CAP, SHARD_ROWS),   # sharded
-    ("fused_topk_search", "l2", GRAPH_POOL_B, GRAPH_POOL_K, False, SHARD_CAP, SHARD_ROWS),
-    ("fused_topk_search", "l2", SHARD_WAVE_B, WAVE_POOL_K, False, SHARD_ROWS + SHARD_WAVE_B,
-     SHARD_ROWS + SHARD_WAVE_B),
+    ("fused_topk_search", "l2", GRAPH_POOL_B, GRAPH_POOL_K, False, SHARD_GRAPH_CAP,  # and
+     SHARD_GRAPH_CAP),                                                          # multihost
+    ("fused_topk_search", "l2", SHARD_WAVE_B, WAVE_POOL_K, False,
+     SHARD_GRAPH_CAP + SHARD_WAVE_B, SHARD_GRAPH_CAP + SHARD_WAVE_B),
 )
 # K2's candidate pools (phase 11's phase 1) compared with their plain
 # version, at every shape phase 11 gives them: (kernel, metric, B, k,
@@ -484,6 +514,8 @@ QUANT_CASES = (
      DEEP_DIMS, SHARD_DEEP_CHUNK),
     ("fused_topk_search_v2_int8", "cosine", 8, 256, SHARD_DEEP_CAP,
      SHARD_DEEP_ROWS + SHARD_STREAMS * DEEP_WAVE // SHARDS, DEEP_DIMS, SHARD_DEEP_CHUNK),
+    # phase 16 (b): a rank's int8 shard of phase 3's rows
+    ("fused_topk_search_v2_int8", "cosine", MAIN_B, 128, SHARD_CAP, SHARD_ROWS, DIMS, None),
 )
 # The quantized cases the summary line reports: (kernel, B, k, capacity,
 # segment) -> (label, the reference's XLA scan it replaces).
@@ -496,6 +528,8 @@ QUANT_SUMMARY = {
         ("deep bf16 pool", "embeddinghub_tpu/ops/topk.py:697-710"),
     ("fused_topk_search_v2_int8", DEEP_B, 256, SHARD_DEEP_CAP, SHARD_DEEP_CHUNK):
         ("sharded deep int8 pool", "embeddinghub_tpu/ops/topk.py:697-710"),
+    ("fused_topk_search_v2_int8", MAIN_B, 128, SHARD_CAP, None):
+        ("multihost int8 pool", "embeddinghub_tpu/ops/topk.py:301-313"),
 }
 # Published peaks of one H100 SXM (dense): bf16 and TF32 tensor cores, f32
 # FMA outside them, HBM3.
@@ -519,8 +553,8 @@ SUMMARY = {
     ("l2", FLUSH, GRAPH_POOL_K, False, BIG_ROWS): ("fused_topk_search",
                                                    "boundary repair pool"),
     ("cosine", MAIN_B, 16, True, SHARD_CAP): ("fused_topk_search", "sharded"),
-    ("l2", GRAPH_POOL_B, GRAPH_POOL_K, False, SHARD_CAP): ("fused_topk_search",
-                                                           "sharded graph pool"),
+    ("l2", GRAPH_POOL_B, GRAPH_POOL_K, False, SHARD_GRAPH_CAP): ("fused_topk_search",
+                                                                 "sharded graph pool"),
     ("l2", 1, 16, True, COMPOSER_STORE_CAP): ("fused_topk_search", "composer store"),
 }
 # the path whose launches a summary case reports
@@ -530,7 +564,8 @@ CASE_PATH = {"main": "main", "graph pool": "graph", "graph upper-layer pool": "g
              "int8 pool": "quantized", "deep int8 pool": "quantized",
              "deep bf16 pool": "quantized", "sharded": "sharded",
              "sharded graph pool": "sharded", "sharded deep int8 pool": "sharded",
-             "featurestore": "featurestore", "composer store": "composer"}
+             "featurestore": "featurestore", "composer store": "composer",
+             "multihost int8 pool": "multihost"}
 SERVER_START_S, WAIT_S = 300, 60  # bounds on every wait for the server subprocess
 
 
@@ -2112,7 +2147,8 @@ def timed_calls(fn, runs: int = 3) -> float:
 
 
 def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
-    """Phase 12: the sharded engines on a mesh of SHARDS shards of one card."""
+    """Phase 12: the sharded engines on a mesh of SHARDS shards of one card.
+    Returns (a)'s queries and one card's exact lists of them (phase 16)."""
     from embeddinghub_tpu_torch.index.flat import FlatIndex
     from embeddinghub_tpu_torch.ops import distance as D
     from embeddinghub_tpu_torch.ops import fused_topk as F
@@ -2259,8 +2295,8 @@ def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) hnsw-sharded: phase 8's 1M SIFT-proxy rows, one multiset
-    train, test = graph_rows
+    # (c) hnsw-sharded: SHARD_GRAPH_ROWS of phase 8's SIFT-proxy rows, one multiset
+    train, test = graph_rows[0][:SHARD_GRAPH_ROWS], graph_rows[1]
     config = Config(engine="hnsw-sharded", hnsw_m=GRAPH_M, hnsw_ef_construction=GRAPH_EFC)
     hub = EmbeddingHub.load_or_create(base / "graph", engine="hnsw-sharded", mesh=mesh,
                                       config=config)
@@ -2268,22 +2304,24 @@ def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
     index = version.index
     check(isinstance(index, ShardedHNSWIndex) and index.n_shards == SHARDS,
           "engine=hnsw-sharded did not give a ShardedHNSWIndex on the mesh")
-    keys = [f"g{j}" for j in range(ROWS)]
-    before = launches["fused_topk_search"]
+    keys = [f"g{j}" for j in range(SHARD_GRAPH_ROWS)]
+    k1 = ("fused_topk_search", "fused_topk_search_large_k")  # the pools take either route
+    before = sum(launches[name] for name in k1)
     t0 = time.perf_counter()
     version.multiset(zip(keys, train))
     ingest_s = time.perf_counter() - t0
-    built = launches["fused_topk_search"] - before
+    built = sum(launches[name] for name in k1) - before
     check(built > 0, "the shards' bulk builds did not launch K1")
     build_s = sum(sum(sh.build_seconds.values()) for sh in index._shards)
     x_dev = torch.from_numpy(train).to(CARD)
     _, oracle = F.exact_topk(torch.from_numpy(test).to(CARD), x_dev,
-                             torch.ones(ROWS, dtype=torch.bool, device=CARD),
+                             torch.ones(SHARD_GRAPH_ROWS, dtype=torch.bool, device=CARD),
                              D.sqnorms(x_dev), k=GRAPH_K, metric="l2", exact=True)
     oracle = oracle.cpu().numpy()
     del x_dev
-    print(f"[sharded] (c) hnsw-sharded 1M x {DIMS} l2, M={GRAPH_M} efC={GRAPH_EFC}, "
-          f"{SHARD_ROWS} rows a shard: one multiset with the WAL on {ingest_s:.2f} s; "
+    print(f"[sharded] (c) hnsw-sharded {SHARD_GRAPH_ROWS} x {DIMS} l2, M={GRAPH_M} "
+          f"efC={GRAPH_EFC}, {SHARD_GRAPH_CAP} rows a shard: one multiset with the WAL "
+          f"on {ingest_s:.2f} s; "
           f"the {SHARDS} bulk builds {build_s:.2f} s ("
           + "; ".join(f"{sum(sh.build_seconds.values()):.2f}" for sh in index._shards)
           + f"); K1 launched {built} times", flush=True)
@@ -2296,7 +2334,7 @@ def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
               f"{GRAPH_K} {recalls[ef]:.4f}; {walk_ms[ef]:.3f} ms per batch", flush=True)
     check(recalls[100] >= GRAPH_RECALL,
           f"sharded graph recall@10 at ef=100 {recalls[100]} < {GRAPH_RECALL}")
-    line.update(graph_rows_per_shard=SHARD_ROWS, graph_build_s=round(build_s, 3),
+    line.update(graph_rows_per_shard=SHARD_GRAPH_CAP, graph_build_s=round(build_s, 3),
                 graph_recall={str(ef): r for ef, r in recalls.items()},
                 graph_ms={str(ef): round(v, 3) for ef, v in walk_ms.items()})
     new = sift_rows(SHARD_GRAPH_WAVES * FLUSH, 3)
@@ -2307,7 +2345,7 @@ def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
                              new[j * FLUSH:(j + 1) * FLUSH]))
     waves_s = time.perf_counter() - t0
     check(launches["fused_topk_search"] > before, "the waves did not launch K1")
-    check(version.size == ROWS + len(new), f"size {version.size}")
+    check(version.size == SHARD_GRAPH_ROWS + len(new), f"size {version.size}")
     want = version.nearest_batch(test, GRAPH_K)
     t0 = time.perf_counter()
     hub.save()
@@ -2329,6 +2367,7 @@ def phase_sharded(torch, x_host, launches, deep, graph_rows, base):
     torch.cuda.empty_cache()
     line["phase_s"] = round(time.perf_counter() - t_phase, 1)
     print(f"[sharded] {json.dumps(line)}", flush=True)
+    return {"queries": queries, "exact": (fd, fi)}
 
 
 def trace_events(log_dir: str) -> list:
@@ -2995,6 +3034,113 @@ def phase_cli(torch, x_host) -> None:
           flush=True)
 
 
+def phase_multihost(torch, x_host, flat, graph_rows, base):
+    """Phase 16: the sharded engines across MH_PROCS ranks of the one card
+    (python -m embeddinghub_tpu_torch.parallel.multihost, gloo).  ``flat``:
+    phase 12's queries and one card's exact lists of them; ``graph_rows``:
+    the SIFT-proxy rows and queries.  Returns the ranks' launches summed."""
+    from embeddinghub_tpu_torch.ops import distance as D
+    from embeddinghub_tpu_torch.ops import fused_topk as F
+    from embeddinghub_tpu_torch.parallel.multihost import SUMMARY_TAG
+
+    t_phase = time.perf_counter()
+    train, test = graph_rows
+    fd, fi = flat["exact"]
+    files = {name: base / f"{name}.npy" for name in ("rows", "queries", "graph", "graph_q")}
+    for name, arr in (("rows", x_host), ("queries", flat["queries"]), ("graph", train),
+                      ("graph_q", test)):
+        np.save(files[name], arr)
+    x_dev = torch.from_numpy(train).to(CARD)
+    _, oracle = F.exact_topk(torch.from_numpy(test).to(CARD), x_dev,
+                             torch.ones(len(train), dtype=torch.bool, device=CARD),
+                             D.sqnorms(x_dev), k=GRAPH_K, metric="l2", exact=True)
+    oracle = oracle.cpu().numpy()
+    del x_dev
+    out = base / "out"
+    cmd = [sys.executable, "-m", "embeddinghub_tpu_torch.parallel.multihost",
+           "--procs", str(MH_PROCS), "--local-shards", str(MH_LOCAL), "--device", CARD,
+           "--backend", "gloo", "--timeout", str(MH_TIMEOUT_S),
+           "--data", str(files["rows"]), "--queries", str(files["queries"]),
+           "--k", str(MAIN_K), "--metric", "cosine",
+           "--graph-data", str(files["graph"]), "--graph-queries", str(files["graph_q"]),
+           "--graph-m", str(GRAPH_M), "--graph-efc", str(GRAPH_EFC), "--graph-ef", "100",
+           "--out", str(out)]
+    t0 = time.perf_counter()
+    # a process group of its own: past the bound the launcher and its ranks go together
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                          start_new_session=True,
+                          cwd=Path(__file__).resolve().parent) as proc:
+        try:
+            stdout, stderr = proc.communicate(timeout=MH_TIMEOUT_S + 60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            stdout, stderr = proc.communicate()
+    run_s = time.perf_counter() - t0
+    for ln in stdout.splitlines():
+        if not ln.startswith(SUMMARY_TAG):
+            print(f"[multihost] {ln}", flush=True)
+    check(proc.returncode == 0, f"the multihost launcher exited {proc.returncode}: "
+          f"{stderr[-3000:]}")
+    summary = json.loads([ln for ln in stdout.splitlines()
+                          if ln.startswith(SUMMARY_TAG)][-1][len(SUMMARY_TAG):])
+    ranks = summary["ranks"]
+    lists = []
+    for r in range(MH_PROCS):
+        with np.load(out / f"rank{r}.npz") as f:
+            lists.append({name: f[name] for name in f.files})
+    for name, arr in lists[0].items():
+        check(np.array_equal(lists[1][name], arr), f"the ranks' {name} lists differ")
+    got = lists[0]
+    # (a) f32: one card's exact lists up to ties
+    sd, si = got["float32_d"], got["float32_i"]
+    check(np.abs(sd - fd).max() <= SHARD_TIE, "multihost distances differ from one card's")
+    swaps = si != fi
+    if swaps.any():
+        qp = flat["queries"] / np.linalg.norm(flat["queries"], axis=1, keepdims=True)
+        xr = x_host[si[swaps]]
+        true_d = 1 - np.einsum("nd,nd->n", xr / np.linalg.norm(xr, axis=1, keepdims=True),
+                               qp[np.nonzero(swaps)[0]])
+        check(np.abs(true_d - fd[swaps]).max() <= SHARD_TIE,
+              "multihost lists differ from one card's beyond ties")
+    f32_recall = recall_at(si, fi)
+    check(f32_recall >= SHARD_RECALL, f"multihost recall@{MAIN_K} {f32_recall}")
+    # (b) int8: the same guard on every rank, recall against the same lists
+    storages = [r["legs"]["int8"]["storage"] for r in ranks]
+    check(len(set(storages)) == 1, f"the ranks' guards picked {storages}")
+    int8_recall = recall_at(got["int8_i"], fi)
+    check(int8_recall >= MH_INT8_RECALL, f"multihost int8 recall@{MAIN_K} {int8_recall}")
+    # (c) per-rank shard files: the ranks checked the ids, the PASS line says so
+    check("PASS multihost snapshot/restore" in stdout, "no snapshot/restore PASS line")
+    # (d) the graph at ef=100
+    graph_recall = recall_at(got["graph_i"], oracle)
+    check(graph_recall >= GRAPH_RECALL, f"multihost graph recall@{GRAPH_K} {graph_recall}")
+    for r in ranks:
+        for name in ("fused_topk_search", "fused_topk_search_v2_int8"):
+            check(r["launches"].get(name, 0) > 0, f"rank {r['rank']} never launched {name}")
+    legs = [r["legs"] for r in ranks]
+    line = {"ranks": MH_PROCS, "shards": MH_PROCS * MH_LOCAL, "backend": "gloo",
+            "rows_per_shard": len(x_host) // (MH_PROCS * MH_LOCAL),
+            "graph_rows_per_shard": len(train) // (MH_PROCS * MH_LOCAL),
+            **{f"{leg}_{key}": [round(lg[leg][key], 3) for lg in legs]
+               for leg in ("float32", "int8", "graph") for key in ("ms", "gather_ms")},
+            **{f"{leg}_device_ms": [lg[leg]["device_ms"] for lg in legs]
+               for leg in ("float32", "int8")},
+            "f32_recall": f32_recall, "int8_recall": int8_recall, "int8_storage": storages[0],
+            "graph_recall_ef100": graph_recall,
+            "graph_add_s": [round(lg["graph"]["add_s"], 3) for lg in legs],
+            "snapshot_bytes": [lg["snapshot"]["bytes"] for lg in legs],
+            "restore_s": [round(lg["snapshot"]["restore_s"], 3) for lg in legs],
+            "launcher_s": round(run_s, 1), "phase_s": round(time.perf_counter() - t_phase, 1)}
+    print(f"[multihost] {MH_PROCS} ranks x {MH_LOCAL} shards of {CARD} over gloo: f32 "
+          f"{line['float32_ms']} ms a call (gather {line['float32_gather_ms']}), recall@"
+          f"{MAIN_K} {f32_recall:.5f} ({int(swaps.sum())} tie swaps); int8 ({storages[0]}) "
+          f"{line['int8_ms']} ms, recall {int8_recall:.5f}; graph {len(train)} rows, "
+          f"recall@{GRAPH_K} at ef=100 {graph_recall:.4f}, {line['graph_ms']} ms a batch",
+          flush=True)
+    print(f"[multihost] {json.dumps(line)}", flush=True)
+    return summary["launches"]
+
+
 REPLACES = {"fused_topk_search": "embeddinghub_tpu/ops/pallas_topk.py:124",
             "fused_topk_search_v2": "embeddinghub_tpu/ops/pallas_topk.py:270",
             "fused_topk_search_large_k": "embeddinghub_tpu/ops/pallas_topk.py:124"}
@@ -3079,7 +3225,8 @@ def main() -> int:
              "sharded": ("fused_topk_search", "fused_topk_search_v2_int8"),
              "featurestore": ("fused_topk_search_v2",),
              "crash": ("fused_topk_search",),
-             "composer": ("fused_topk_search_v2", "fused_topk_search")}
+             "composer": ("fused_topk_search_v2", "fused_topk_search"),
+             "multihost": ("fused_topk_search", "fused_topk_search_v2_int8")}
     for path, run in (("restore", lambda: phase_restore(torch, x_host, F.LAUNCHES)),
                       ("offline", lambda: phase_offline(torch, x_host))):
         F.reset_launches()
@@ -3111,8 +3258,9 @@ def main() -> int:
     # the sharded path: the sharded engines on four shards of the card (phase 12)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
         F.reset_launches()
-        phase_sharded(torch, x_host, F.LAUNCHES, deep, graph_rows, Path(tmp))
+        flat = phase_sharded(torch, x_host, F.LAUNCHES, deep, graph_rows, Path(tmp))
         paths["sharded"] = dict(F.LAUNCHES)
+    mh_graph = (graph_rows[0][:SHARD_GRAPH_ROWS].copy(), graph_rows[1])  # phase 16's
     del deep, graph_rows
     # the feature store's vector path: ff.Client -> materialization -> the
     # engine vector store -> nearest (phase 13)
@@ -3127,6 +3275,9 @@ def main() -> int:
     # the CLI (phase 15): its deployed composer's launches are not read (the
     # CLI sends the stack's output to /dev/null); its apply searches nothing
     phase_cli(torch, x_host)
+    # the multihost path's kernels run in its ranks, which report them (phase 16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_") as tmp:
+        paths["multihost"] = phase_multihost(torch, x_host, flat, mh_graph, Path(tmp))
     for path, counts in paths.items():
         print(f"[{path}] launches on the {path} path: {counts}", flush=True)
         for name in needs[path]:

@@ -29,6 +29,16 @@ order stay balanced and a batched insert reaches every shard.
     to the lower column as ``lax.top_k`` orders them
     (``topk.smallest_k``).  The reference's all-gather over the chip
     interconnect is a copy to the first device here.
+  * On a mesh that spans processes (:func:`~.mesh.process_mesh`) every
+    rank keeps the whole host arena, as every reference process does, so
+    ``vector``, ``vectors``, ``state_arrays`` and the guard stay local and
+    alike, and device state only for its own shards.  A search merges the
+    lists of its own shards and every other rank's, gathered in rank order
+    (:meth:`~.mesh.Mesh.all_gather_lists`): the same ``[B, S * kk]``
+    columns, so every rank holds the lists of the in-process mesh.
+    :meth:`ShardedFlatIndex.save_shards` writes a rank's shards' device
+    state, a file a shard, and :meth:`ShardedFlatIndex.restore_shards`
+    reads it back in place of a sync.
 
 Not ported, because they serve ``shard_map`` and the TPU's memory rather
 than the index: the shard-major relayout of the host arena for a sharded
@@ -37,6 +47,8 @@ of its first row.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,19 +87,21 @@ def padded_queries(queries: np.ndarray, metric: str) -> np.ndarray:
     return q
 
 
-def merge_lists(parts, dev0: torch.device, kk: int, width: int | None = None):
-    """The shards' ``(dist, local ids)`` lists, in shard order, merged on
-    ``dev0``: local row ``i`` of shard ``s`` is host row ``i * S + s`` (-1
-    kept), the columns ``[B, S * kk]`` shard-major, +inf where an id is -1,
+def merge_lists(mesh: Mesh, parts, kk: int, width: int | None = None):
+    """This process's shards' ``(dist, local ids)`` lists, in the order of
+    ``mesh.shards``, merged with every other rank's on ``mesh.devices[0]``:
+    local row ``i`` of shard ``s`` is host row ``i * S + s`` (-1 kept), the
+    columns ``[B, S * kk]`` shard-major (the ranks' lists gathered in rank
+    order, :meth:`~.mesh.Mesh.all_gather_lists`), +inf where an id is -1,
     then the ``width`` smallest (``kk`` when ``None``), ties to the lower
     column (``lax.top_k``'s order)."""
-    s_n = len(parts)
+    s_n, home = mesh.size, mesh.devices[0]
     ds, ids = [], []
-    for s, (d, i) in enumerate(parts):
+    for s, (d, i) in zip(mesh.shards, parts):
         i = i.to(torch.int64)
-        ids.append(torch.where(i >= 0, i * s_n + s, -1).to(dev0))
-        ds.append(d.to(dev0))
-    dd, ii = torch.cat(ds, dim=1), torch.cat(ids, dim=1)
+        ids.append(torch.where(i >= 0, i * s_n + s, -1).to(home))
+        ds.append(d.to(home))
+    dd, ii = mesh.all_gather_lists(torch.cat(ds, dim=1), torch.cat(ids, dim=1))
     width = kk if width is None else min(width, dd.shape[1])
     nd, pos = topk_ops.smallest_k(torch.where(ii >= 0, dd, torch.inf), width)
     return nd, torch.gather(ii, 1, pos)
@@ -217,6 +231,8 @@ class ShardedFlatIndex(Index):
     # ------------------------------------------------------------------- sync
 
     def _new_shard(self, dev: torch.device, s: int) -> dict:
+        """Shard ``s``'s device state on ``dev``, its mask written and its
+        planes empty."""
         capl, dims = self._cap_local, self.dims
         int8 = self.storage_dtype in _INT8
         return {
@@ -252,30 +268,44 @@ class ShardedFlatIndex(Index):
     def _full_sync(self) -> None:
         self._dirty_rows.clear()
         apply_quant_guard(self)
+        self._agree_on_storage()
         self._shards = None  # the old arenas go before the new ones are made
-        s_n, capl = self.n_shards, self._cap_local
-        shards = [self._new_shard(dev, s) for s, dev in enumerate(self.mesh.devices)]
-        step = max(1, _SYNC_BLOCK_BYTES // max(1, 4 * self.dims * s_n))
+        mesh, s_n, capl = self.mesh, self.n_shards, self._cap_local
+        shards = [self._new_shard(dev, s) for s, dev in zip(mesh.shards, mesh.devices)]
+        own = slice(mesh.shards.start, mesh.shards.stop)
+        step = max(1, _SYNC_BLOCK_BYTES // max(1, 4 * self.dims * len(shards)))
         for a in range(0, capl, step):
             b = min(capl, a + step)
             # host rows a*S .. b*S are local rows a .. b of every shard
-            blocks = self.mesh.put(self._hx[a * s_n:b * s_n].reshape(b - a, s_n, self.dims))
-            for s, (st, blk) in enumerate(zip(shards, blocks)):
-                self._write(st, slice(a, b), blk[:, s].contiguous())
+            block = self._hx[a * s_n:b * s_n].reshape(b - a, s_n, self.dims)[:, own]
+            blocks = mesh.put(np.ascontiguousarray(block))
+            for j, (st, blk) in enumerate(zip(shards, blocks)):
+                self._write(st, slice(a, b), blk[:, j].contiguous())
         self._shards = shards
         self._dirty = False
 
+    def _agree_on_storage(self) -> None:
+        """On a process mesh, every rank's guard must have picked the same
+        storage (the guard is a host computation on the same arena, so it
+        does): ranks that differ would build different arenas and stall in
+        the next gather, so each raises here instead."""
+        if self.mesh.world == 1:
+            return
+        picked = self.mesh.gather_objects(self.storage_dtype)
+        if len(set(picked)) != 1:
+            raise RuntimeError(f"the ranks' quantization guards disagree: {picked}")
+
     def _scatter_sync(self) -> None:
-        """Write the dirty host rows into their shards' device state in
-        place; host row ``r`` is local row ``r // S`` of shard ``r % S``."""
+        """Write the dirty host rows into this process's shards' device
+        state in place; host row ``r`` is local row ``r // S`` of shard
+        ``r % S``."""
         rows = np.fromiter(self._dirty_rows, dtype=np.int64, count=len(self._dirty_rows))
         rows.sort()
         s_n = self.n_shards
-        for s, dev in enumerate(self.mesh.devices):
+        for s, dev, st in zip(self.mesh.shards, self.mesh.devices, self._shards):
             mine = rows[rows % s_n == s]
             if mine.size == 0:
                 continue
-            st = self._shards[s]
             local = torch.from_numpy(mine // s_n).to(dev)
             self._write(st, local, torch.from_numpy(self._hx[mine]).to(dev))
             st["valid"].index_copy_(0, local, torch.from_numpy(self._hvalid[mine]).to(dev))
@@ -316,11 +346,12 @@ class ShardedFlatIndex(Index):
         """The sharded search of prepared queries ``q [pb, D]``
         (:func:`padded_queries`), each shard at width ``kk``, merged to
         ``width`` columns (``kk`` when ``None``): device ``(dist, ids)`` on
-        the first device, ids host rows."""
+        this process's first device, ids host rows."""
         self._sync()
-        return merge_lists([self._local_search(st, qd, kk, self._local_rows(s))
-                            for s, (st, qd) in enumerate(zip(self._shards, self.mesh.put(q)))],
-                           self.mesh.devices[0], kk, width)
+        mesh = self.mesh
+        return merge_lists(mesh, [self._local_search(st, qd, kk, self._local_rows(s))
+                                  for s, st, qd in zip(mesh.shards, self._shards, mesh.put(q))],
+                           kk, width)
 
     def search(self, queries: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
         queries = as_f32_matrix(queries, self.dims)
@@ -352,6 +383,59 @@ class ShardedFlatIndex(Index):
             "valid": self._hvalid,
             "sflat_meta": np.asarray([self._STORAGE_CODES[self.storage_dtype]], np.int32),
         }
+
+    def save_shards(self, path) -> list[Path]:
+        """This process's shards' device state, one file a shard under the
+        directory ``path`` (``shard<s>.npz``: the arena or the int8 planes,
+        the row scales, ``sq``, the mask and ``meta = [S, s, cap_local,
+        dims, storage code, high-water mark]``), after a sync: the per-host
+        snapshot of the reference's multi-process leg, which no rank
+        gathers.  Returns the files written."""
+        self._sync()
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        code = self._STORAGE_CODES[self.storage_dtype]
+        out = []
+        for s, st in zip(self.mesh.shards, self._shards):
+            arrays = {name: t.cpu().numpy() for name, t in st.items() if t is not None}
+            arrays["meta"] = np.asarray([self.n_shards, s, self._cap_local, self.dims, code,
+                                         self._high_water], np.int64)
+            out.append(path / f"shard{s}.npz")
+            np.savez(out[-1], **arrays)
+        return out
+
+    def restore_shards(self, path) -> None:
+        """Read this process's shards' device state from the files
+        :meth:`save_shards` wrote under ``path``, in place of a sync (no
+        guard, no quantization).  The host arena must already hold the rows
+        the files were made from (every rank's SPMD writes): a file whose
+        layout or mask differs from this index's raises ``ValueError``."""
+        codes = {v: n for n, v in self._STORAGE_CODES.items()}
+        shards, high = [], self._high_water
+        for s, dev in zip(self.mesh.shards, self.mesh.devices):
+            with np.load(Path(path) / f"shard{s}.npz") as f:
+                arrays = {name: f[name] for name in f.files}
+            meta = [int(v) for v in arrays.pop("meta")]
+            want = [self.n_shards, s, self._cap_local, self.dims]
+            if meta[:4] != want or meta[4] not in codes:
+                raise ValueError(f"shard file {s}: layout {meta[:5]}, index {want}")
+            self.storage_dtype = codes[meta[4]]
+            st = self._new_shard(dev, s)
+            if not np.array_equal(arrays["valid"], st["valid"].cpu().numpy()):
+                raise ValueError(f"shard file {s}: its mask differs from the host arena's")
+            planes = {name for name, t in st.items() if t is not None}
+            if set(arrays) != planes:
+                raise ValueError(f"shard file {s}: planes {sorted(arrays)}, "
+                                 f"{self.storage_dtype} storage has {sorted(planes)}")
+            for name, arr in arrays.items():
+                st[name].copy_(torch.from_numpy(arr))
+            shards.append(st)
+            high = max(high, meta[5])
+        self._shards = shards
+        self._high_water = high  # where the files' pools stopped
+        self._guard_checked_size = self._size
+        self._dirty = False
+        self._dirty_rows.clear()
 
     @classmethod
     def from_state(cls, dims: int, metric: str, arrays: dict[str, np.ndarray],

@@ -94,16 +94,18 @@ def test_k1_route_by_shape():
     large-k route past it, below such tiles, and past ``LARGE_K_FROM`` over
     at most ``LARGE_K_ROWS`` rows a k whose ``[B, cap]`` scores fit its
     buffer.  Of ``chip_smoke.py``'s K1 shapes (D = 128), the routed pools
-    (k=257 over 32,768 rows: B=4096 and both remainders) take the large-k
-    route; the graph, wave, refine, repair and shard pools (k=200 and 256
-    over 250,000 to 4M rows), the upper-layer pools (k=64) and every k=16
-    shape keep lists."""
+    (k=257 over 32,768 rows: B=4096 and both remainders) and a sharded
+    graph's build pool (k=256 over a shard's 65,536 rows) take the large-k
+    route; the graph, wave, refine and repair pools (k=200 and 256 over
+    250,000 to 4M rows), a graph shard's wave pool (k=200 over 66,560
+    rows), the upper-layer pools (k=64) and every k=16 shape keep lists."""
     import chip_smoke as C
 
     routes = {(b, k, cap): F.k1_route(k, b, cap, _tile_d128(b))
               for name, _, b, k, _, cap, _ in C.KERNEL_CASES if name == "fused_topk_search"}
     large = {(C.FLUSH, C.ROUTED_K, C.ROUTED_S),
-             *((b, C.ROUTED_K, C.ROUTED_S) for b, _ in C.ROUTED_TAILS)}
+             *((b, C.ROUTED_K, C.ROUTED_S) for b, _ in C.ROUTED_TAILS),
+             (C.GRAPH_POOL_B, C.GRAPH_POOL_K, C.SHARD_GRAPH_CAP)}
     assert large <= set(routes)
     assert {s for s, r in routes.items() if r == "large_k"} == large
     assert [F.k1_route(k, 64, 1000, 64) for k in (1, 32, 33, 128, 129, 512, 513, 1024)] == (
